@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Smoke check of the PyTorch + CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Phases (any failure exits nonzero before the result line):
+
+1. environment: torch/CUDA versions, nvcc, the card's name and power limit;
+   TF32 is turned off for matmuls and cuDNN so f32 checks are true f32;
+2. build: compiles ``tortoise_tpu_torch/csrc/*.cu`` for sm_90a;
+3. kernels: each hand-written kernel (A decode trunk, B packed attention,
+   C causal qkv attention) against its plain PyTorch version at the
+   shapes the main path gives it, with the stated tolerance, and the time
+   of both (CUDA events, after warm-up);
+4. end to end through the CLI at full production width (random weights,
+   --bf16 --int8-weights, stand-in tokens, zero voice): request 1 at
+   --batch-size 1 must launch kernels A and B, request 2 at
+   --batch-size 8 must also launch kernel C (the latent pass); the audio
+   must be finite and of the vocoder's length for its mel;
+5. small-input agreement: the tiny f32 parity plane on the card against
+   the same run on the CPU (same tokens, mel and audio within tolerance).
+
+The line before the last is ``{"kernels": [...]}``, preceded by the
+card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``. ``--profile`` instead profiles a
+decode step and a diffusion step after phase 3 (device time by kernel,
+idle share; traces under ``chiprun_out/``) and stops without a result
+line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# stand-in wrapped text ids (255 ... 0), a 30-id prompt: text bucket 32,
+# so the latent pass runs S = 1 + 32 + 502 = 535 positions
+STANDIN_TOKENS = [255] + [(7 * i + 3) % 200 + 20 for i in range(28)] + [0]
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(torch, got, want) -> tuple:
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf"), float("inf")
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def _kernel_a_weights(torch):
+    """Random production-width kernel-A weights: 30 layers, D=1024, H=16,
+    F=4096, Vp=8320 (8194 real logits)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    L, D, F, V, VP = 30, 1024, 4096, 8194, 8320
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device=dev) * s
+
+    def q8(k_in, n_out):
+        wq = torch.randint(-127, 128, (L, k_in, n_out), generator=g,
+                           device=dev, dtype=torch.int8)
+        return wq, (torch.rand((L, 1, n_out), generator=g, device=dev)
+                    * 0.5 + 0.5) * (1.5 / (127 * k_in ** 0.5))
+
+    blocks = {
+        "ln1_w": 1 + rn(L, D, s=0.1), "ln1_b": rn(L, D, s=0.1),
+        "attn_w": q8(D, 3 * D), "attn_b": rn(L, 3 * D, s=0.1),
+        "proj_w": q8(D, D), "proj_b": rn(L, D, s=0.1),
+        "ln2_w": 1 + rn(L, D, s=0.1), "ln2_b": rn(L, D, s=0.1),
+        "fc_w": q8(D, F), "fc_b": rn(L, F, s=0.1),
+        "fc_proj_w": q8(F, D), "fc_proj_b": rn(L, D, s=0.1),
+    }
+    lm_b = torch.full((1, VP), -1e30, device=dev)
+    lm_b[:, :V] = rn(1, V, s=0.1)
+    head = {"ln_f_w": 1 + rn(1, D, s=0.1), "ln_f_b": rn(1, D, s=0.1),
+            "lm_ln_w": 1 + rn(1, D, s=0.1), "lm_ln_b": rn(1, D, s=0.1),
+            "lm_wq": torch.randint(-127, 128, (D, VP), generator=g,
+                                   device=dev, dtype=torch.int8),
+            "lm_sc": torch.full((1, VP), 4.0 / (127 * 32), device=dev),
+            "lm_b": lm_b}
+    return blocks, head, g
+
+
+def _kernel_a_inputs(torch, b, weights=None):
+    """(blocks, cache_k, cache_v, bias_row, x, kwargs) for one decode step
+    of b rows over a C=640-slot cache (a 32-token bucket's size_cache)
+    holding 300 valid slots, with the head and the default sampler."""
+    blocks, head, g = weights or _kernel_a_weights(torch)
+    dev = torch.device("cuda")
+    L, D, C, V = 30, 1024, 640, 8194
+    ck = torch.randn((L, b, C, D), generator=g, device=dev).bfloat16()
+    cv = torch.randn((L, b, C, D), generator=g, device=dev).bfloat16()
+    bias_row = torch.full((b, C), -1e30, device=dev)
+    bias_row[:, :300] = 0.0
+    x = torch.randn((b, D), generator=g, device=dev)
+    prev = torch.randint(0, V, (b, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    u = torch.rand((b, 1), generator=g, device=dev)
+    kw = dict(head=head, prev_u=(prev, u), sampler=(0.8, 50, 0.2, 2.0))
+    return blocks, ck, cv, bias_row, x, kw
+
+
+def check_kernel_a(torch, results):
+    """Kernel A at production width, B in {1, 4}, with and without the
+    head + sampler; tokens must match the plain path's."""
+    from tortoise_tpu_torch.ops.cuda import decode_trunk as K
+
+    V, worst, tol = 8194, 0.0, 2e-2
+    weights = _kernel_a_weights(torch)
+    timing = None
+    for b in (1, 4):
+        blocks, ck, cv, bias_row, x, full = _kernel_a_inputs(torch, b,
+                                                             weights)
+        prev, u = full["prev_u"]
+        for with_head in (False, True):
+            kw = full if with_head else {}
+            got = K.fused_decode_trunk(blocks, ck, cv, bias_row, x, **kw)
+            want = K.fused_decode_trunk_plain(blocks, ck, cv, bias_row, x,
+                                              **kw)
+            torch.cuda.synchronize()
+            names = ("hidden", "k_rows", "v_rows", "logits")
+            # logits: the V real columns (the padded ones sit at -1e30)
+            pairs = [(gt, wt) for gt, wt in zip(got[:4], want[:4])]
+            if with_head:
+                pairs[3] = (got[3][:, :V], want[3][:, :V])
+            for name, (gt, wt) in zip(names, pairs):
+                err, rel = rel_err(torch, gt, wt)
+                worst = max(worst, err)
+                print(f"  A b={b} head={with_head} {name}: max_abs_err="
+                      f"{err:.3e} rel={rel:.3e} (tol rel {tol})")
+                if not rel <= tol:
+                    fail(f"kernel A {name} b={b} disagrees: rel {rel}")
+            if with_head:
+                tok_k, tok_p = got[4].cpu().tolist(), want[4].cpu().tolist()
+                tok_same = K.sample_plain(got[3], prev, u, kw["sampler"])
+                print(f"  A b={b} tokens kernel={tok_k} plain={tok_p}")
+                if tok_same.cpu().tolist() != tok_k:
+                    fail(f"kernel A sampler disagrees with its plain "
+                         f"version on the same logits: {tok_k} vs "
+                         f"{tok_same.cpu().tolist()}")
+                if tok_k != tok_p:
+                    fail(f"kernel A tokens differ from the plain path: "
+                         f"{tok_k} vs {tok_p}")
+            if b == 1 and with_head:
+                timing = (
+                    cuda_ms(torch, lambda: K.fused_decode_trunk(
+                        blocks, ck, cv, bias_row, x, **kw)),
+                    cuda_ms(torch, lambda: K.fused_decode_trunk_plain(
+                        blocks, ck, cv, bias_row, x, **kw), iters=3))
+    print(f"  A decode step (B=1, C=640, head+sampler): kernel "
+          f"{timing[0]:.3f} ms, plain {timing[1]:.3f} ms")
+    results["A"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+
+
+def profile_phase(torch) -> None:
+    """torch.profiler over 5 kernel-A decode steps (B=1) and a 3-step
+    production-width diffusion run (B=1, 500 latents, bf16 + int8,
+    kernel B): device time by kernel, and the traces under chiprun_out/."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tortoise_tpu_torch.ops.cuda import decode_trunk as K
+    from tortoise_tpu_torch.pipeline import diffusion_stage as DS
+    from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels
+
+    def report(prof, name, n, wall_s):
+        # device-side events only (kernels, copies): an op's own row would
+        # count its kernels' time a second time
+        rows = [(evt.self_device_time_total, evt.count, evt.key)
+                for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA
+                and evt.self_device_time_total > 0]
+        rows.sort(reverse=True)
+        busy_ms = sum(r[0] for r in rows) / 1e3 / n
+        wall_ms = wall_s * 1e3 / n
+        print(f"  {name}: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+              f"wall per iteration over {n} (idle share "
+              f"{1 - busy_ms / wall_ms:.3f}); by kernel (device us per "
+              f"iteration, launches per iteration):")
+        for dev, count, key in rows[:12]:
+            print(f"    {dev / n:10.1f} us  {count / n:7.1f}x  {key[:90]}")
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        prof.export_chrome_trace(os.path.join(ROOT, "chiprun_out",
+                                              f"trace_{name}.json"))
+
+    args = _kernel_a_inputs(torch, 1)
+    for _ in range(2):
+        K.fused_decode_trunk(*args[:5], **args[5])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(5):
+            K.fused_decode_trunk(*args[:5], **args[5])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    report(prof, "decode_step", 5, wall)
+
+    models = TortoiseModels.random(0)
+    cfg = dataclasses.replace(models.diffusion_cfg, use_flash=True,
+                              n_sample_timesteps=3)
+    params = DS._prepare_params(models.diffusion_params, True, "cuda")
+    lat = torch.randn((1, 512, 1024), device="cuda")
+    DS.diffusion_batch_device(params, lat, [500], cfg, compute_dtype=
+                              torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        DS.diffusion_batch_device(params, lat, [500], cfg, compute_dtype=
+                                  torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    report(prof, "diffusion_3_steps", 3, wall)
+
+
+def check_kernel_b(torch, results):
+    """Kernel B: the denoiser's (2, 2176, 3072) bf16 packed qkv with the
+    rel-pos table, unmasked, plus a masked ragged length."""
+    from tortoise_tpu_torch.ops.cuda import flash_attention as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    H, worst, tol = 16, 0.0, 2e-2
+    table = torch.randn((32, H), generator=g, device=dev) * 0.3
+    timing = None
+    for t, n_valid in ((2176, None), (1000, 937)):
+        qkv = torch.randn((2, t, 3 * H * 64), generator=g,
+                          device=dev).to(torch.bfloat16)
+        valid = None
+        if n_valid is not None:
+            valid = torch.arange(t, device=dev)[None, :] < torch.tensor(
+                [[t], [n_valid]], device=dev)
+        bias_vec = K.relpos_bias_vector(table, t)
+        got = K.flash_attention_packed(qkv, H, valid, bias_vec=bias_vec)
+        want = K.flash_attention_packed_plain(qkv, H, valid, bias_vec)
+        torch.cuda.synchronize()
+        err, rel = rel_err(torch, got, want)
+        worst = max(worst, err)
+        print(f"  B T={t} valid={n_valid}: max_abs_err={err:.3e} "
+              f"rel={rel:.3e} (tol rel {tol})")
+        if not rel <= tol:
+            fail(f"kernel B disagrees at T={t}: rel {rel}")
+        if timing is None:
+            timing = (
+                cuda_ms(torch, lambda: K.flash_attention_packed(
+                    qkv, H, valid, bias_vec=bias_vec)),
+                cuda_ms(torch, lambda: K.flash_attention_packed_plain(
+                    qkv, H, valid, bias_vec), iters=3))
+    print(f"  B (2, 2176) x 16 heads: kernel {timing[0]:.3f} ms, plain "
+          f"{timing[1]:.3f} ms")
+    results["B"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+
+
+def check_kernel_c(torch, results):
+    """Kernel C: the AR latent pass at --batch-size 8, S = 535 with a
+    text bucket of 32 holding 30 real ids."""
+    from tortoise_tpu_torch.ops.cuda import flash_attention as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, H, s, tol = 8, 16, 535, 2e-2
+    qkv = torch.randn((b, s, 3 * H * 64), generator=g,
+                      device=dev).to(torch.bfloat16)
+    valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+    valid[:, 1 + 30:1 + 32] = False
+    got = K.flash_attention_causal_qkv(qkv, H, valid)
+    want = K.flash_attention_causal_qkv_plain(qkv, H, valid)
+    torch.cuda.synchronize()
+    err, rel = rel_err(torch, got, want)
+    print(f"  C B={b} S={s}: max_abs_err={err:.3e} rel={rel:.3e} "
+          f"(tol rel {tol})")
+    if not rel <= tol:
+        fail(f"kernel C disagrees: rel {rel}")
+    ms = cuda_ms(torch, lambda: K.flash_attention_causal_qkv(qkv, H, valid))
+    plain_ms = cuda_ms(torch, lambda: K.flash_attention_causal_qkv_plain(
+        qkv, H, valid), iters=3)
+    print(f"  C (8, 535) x 16 heads: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms")
+    results["C"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def run_request(torch, batch_size: int, out_dir: str, smi: str):
+    from tortoise_tpu_torch import cli
+    from tortoise_tpu_torch.pipeline.vocoder_stage import audio_length
+
+    out = os.path.join(out_dir, f"request_b{batch_size}.wav")
+    argv = ["--random-weights", "--bf16", "--int8-weights", "--seed", "0",
+            "--batch-size", str(batch_size), "--tokens",
+            ",".join(map(str, STANDIN_TOKENS)), "--output", out]
+    t0 = time.monotonic()
+    res = cli.run(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    import numpy as np
+
+    audio, mel = np.asarray(res.audio), np.asarray(res.mel)
+    if not (np.isfinite(audio).all() and np.isfinite(mel).all()):
+        fail(f"request b={batch_size}: non-finite audio or mel")
+    want = audio_length(mel.shape[-1])
+    if mel.shape[0] != 100 or audio.shape != (want,):
+        fail(f"request b={batch_size}: mel {mel.shape}, audio "
+             f"{audio.shape}, want ({want},)")
+    dur = len(audio) / res.sample_rate
+    t = res.timings
+    st = {k: round(v, 3) for k, v in t.items()}
+    print(f"  request b={batch_size}: {len(res.sequences)} candidates, "
+          f"mel {mel.shape}, audio {len(audio)} samples ({dur:.2f} s); "
+          f"stage walls {st}; call wall {wall:.2f} s, RTF "
+          f"{sum(t[k] for k in cli.STAGES) / dur:.3f}, AR "
+          f"{t['ar_decode_loop_s'] / t['ar_decode_steps'] * 1e3:.3f} "
+          f"ms/step, diffusion "
+          f"{t['diffusion_loop_s'] / t['diffusion_steps'] * 1e3:.3f} "
+          f"ms/CFG-step [{smi}]")
+
+
+def check_small_agreement(torch):
+    """Tiny f32 parity plane on the card vs the CPU: same decisions."""
+    import numpy as np
+
+    from tortoise_tpu_torch.pipeline.synthesize import (
+        TortoiseModels,
+        synthesize,
+    )
+
+    models = TortoiseModels.random(3, tiny=True)
+    voice = np.random.default_rng(0).normal(0, 0.5, 64).astype(np.float32)
+    toks = [3, 9, 4, 12, 7, 1, 20, 5]
+    runs = [synthesize(models, tokens=toks, voice=voice, seed=5,
+                       sampler="reference", device=d)
+            for d in ("cpu", "cuda")]
+    cpu, gpu = runs
+    if cpu.sequences != gpu.sequences:
+        fail(f"tiny f32 plane: token streams differ {cpu.sequences} vs "
+             f"{gpu.sequences}")
+    for name in ("mel", "audio"):
+        a, b = getattr(gpu, name), getattr(cpu, name)
+        err = float(np.abs(a - b).max())
+        rel = err / max(float(np.abs(b).max()), 1e-30)
+        print(f"  tiny f32 cuda vs cpu {name}: max_abs_err={err:.3e} "
+              f"rel={rel:.3e} (tol rel 1e-3)")
+        if not rel <= 1e-3:
+            fail(f"tiny f32 plane {name} differs between cuda and cpu")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="after the kernel checks, profile a decode step "
+                         "and a diffusion step with torch.profiler, then "
+                         "stop (no result line)")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs a card")
+    try:
+        from tortoise_tpu_torch.ops.cuda import (
+            build,
+            launch_counts,
+            reset_launch_counts,
+        )
+    except ImportError as e:
+        fail(f"tortoise_tpu_torch not found beside {__file__}: {e}")
+
+    print("[1/5] environment", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = smi_line()
+    print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, nvcc {build.find_nvcc()}")
+    print(f"  card: {smi}; device_count {torch.cuda.device_count()}")
+
+    print("[2/5] kernel build", flush=True)
+    t0 = time.monotonic()
+    lib_path = build.build()
+    build.library()
+    print(f"  built {os.path.relpath(lib_path, ROOT)} in "
+          f"{time.monotonic() - t0:.1f} s")
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("  ptxas: " + line.strip())
+
+    print("[3/5] kernels vs plain PyTorch at main-path shapes", flush=True)
+    results = {}
+    check_kernel_a(torch, results)
+    check_kernel_b(torch, results)
+    check_kernel_c(torch, results)
+    if args.profile:
+        print("[profile] torch.profiler", flush=True)
+        profile_phase(torch)
+        return 0
+
+    kernels = {
+        "A": ("fused_decode_trunk", "decode_trunk",
+              "tortoise_tpu_torch/csrc/decode_trunk.cu",
+              "tortoise_tpu/ops/pallas/decode_trunk.py:277"),
+        "B": ("flash_attention_packed", "flash_attention_packed",
+              "tortoise_tpu_torch/csrc/flash_attention.cu",
+              "tortoise_tpu/ops/pallas/flash_attention.py:269"),
+        "C": ("flash_attention_causal_qkv", "flash_attention_causal_qkv",
+              "tortoise_tpu_torch/csrc/flash_attention.cu",
+              "tortoise_tpu/ops/pallas/flash_attention.py:441"),
+    }
+    print("[4/5] end to end through the CLI (full width, random weights, "
+          "bf16 + int8)", flush=True)
+    with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+        reset_launch_counts()
+        run_request(torch, 1, out_dir, smi)
+        c1 = launch_counts()
+        run_request(torch, 8, out_dir, smi)
+        c2 = launch_counts()
+    print(f"  launches: request 1 {c1}; both requests {c2}")
+    for key in ("A", "B"):
+        if c1[kernels[key][1]] < 1:
+            fail(f"request 1 did not launch kernel {key}")
+    for key in ("A", "B", "C"):
+        if c2[kernels[key][1]] - c1[kernels[key][1]] < 1:
+            fail(f"request 2 did not launch kernel {key}")
+    counts = {k: c2[kernels[k][1]] for k in kernels}
+
+    print("[5/5] small-input agreement (tiny f32 plane, cuda vs cpu)",
+          flush=True)
+    check_small_agreement(torch)
+
+    line = {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[k], **results[k]}
+        for k, (name, _, src, rep) in kernels.items()]}
+    print(json.dumps(line))
+    print(smi)
+    if "jax" in sys.modules:
+        fail("jax was imported")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels (``csrc/*.cu``) with their plain PyTorch
+twins and launch counters. Importing this package builds nothing: the
+library is compiled on the first CUDA call (see ``build``)."""
+
+
+def _wrappers():
+    from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
+    from tortoise_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_causal_qkv,
+        flash_attention_packed,
+    )
+
+    return {"decode_trunk": fused_decode_trunk,
+            "flash_attention_packed": flash_attention_packed,
+            "flash_attention_causal_qkv": flash_attention_causal_qkv}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches on a CUDA tensor since the last reset}."""
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
