@@ -9,16 +9,22 @@ Phases (any failure exits nonzero before the result line):
    TF32 is turned off for matmuls and cuDNN so f32 checks are true f32;
 2. build: compiles ``tortoise_tpu_torch/csrc/*.cu`` for sm_90a;
 3. kernels: each hand-written kernel (A decode trunk, B packed attention,
-   C causal qkv attention) against its plain PyTorch version at the
-   shapes the main path gives it, with the stated tolerance, and the time
-   of both (CUDA events, after warm-up);
-4. end to end through the CLI at full production width (random weights,
-   --bf16 --int8-weights, stand-in tokens, zero voice): request 1 at
-   --batch-size 1 must launch kernels A and B, request 2 at
-   --batch-size 8 must also launch kernel C (the latent pass); the audio
+   C causal qkv attention, D1/D2 strided attention, E fused LVC) against
+   its plain PyTorch version at the shapes the main paths give it, with
+   the stated tolerance (2e-2 relative for bf16 outputs, 1e-4 for E's
+   f32), and the time of both (CUDA events, after warm-up); D1 also
+   against kernel B on one qkv, and B and C at head width 128;
+4. end to end at full production width (random weights, bf16 + int8,
+   stand-in tokens, zero voice), three requests, each with the launch
+   counts set to 0 before it and read after it: request 1 through the CLI
+   at --batch-size 1 must launch kernels A and B, request 2 at
+   --batch-size 8 must also launch kernel C (the latent pass); request 3,
+   synthesize() with the diffusion fallback config (32 heads of 32) and
+   the fused LVC, must launch A, D1 and E (12 times) and not B; the audio
    must be finite and of the vocoder's length for its mel;
 5. small-input agreement: the tiny f32 parity plane on the card against
-   the same run on the CPU (same tokens, mel and audio within tolerance).
+   the same run on the CPU (same tokens, mel and audio within tolerance),
+   on the default configs and on the fallback + fused-LVC configs.
 
 The line before the last is ``{"kernels": [...]}``, preceded by the
 card's name and power limit; the last line is
@@ -61,11 +67,15 @@ def smi_line() -> str:
 
 
 def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call. The timed calls queue behind a ~30 ms device
+    sleep, so the events read the device's time and not the host's
+    enqueue rate (a wrapper's Python costs more than a small kernel)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -318,6 +328,178 @@ def check_kernel_c(torch, results):
     results["C"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def _check(torch, name, got, want, tol, worst):
+    err, rel = rel_err(torch, got, want)
+    print(f"  {name}: max_abs_err={err:.3e} rel={rel:.3e} (tol rel {tol})")
+    if not rel <= tol:
+        fail(f"{name} disagrees: rel {rel}")
+    return max(worst, err)
+
+
+def _views(qkv, h, d):
+    """(B, H, T, D) q, k, v views of a per-head-interleaved qkv."""
+    b, t, _ = qkv.shape
+    x = qkv.view(b, t, h, 3, d)
+    return tuple(x[:, :, :, p].transpose(1, 2) for p in range(3))
+
+
+def check_kernel_d1(torch, results):
+    """Kernel D1, the denoiser's fallback attention: 32 heads of 32 over
+    strided views of the (2, 2176, 3072) bf16 qkv, unmasked and masked;
+    then 16 heads of 64 held against kernel B on the same qkv."""
+    from tortoise_tpu_torch.ops.cuda import flash_attention as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    t, worst, tol, timing = 2176, 0.0, 2e-2, None
+    for h, d in ((32, 32), (16, 64)):
+        qkv = torch.randn((2, t, 3 * h * d), generator=g,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = _views(qkv, h, d)
+        kw = dict(bias_table=torch.randn((32, h), generator=g,
+                                         device=dev) * 0.3,
+                  bias_formula=True)
+        for n_valid in (None, 1900):
+            valid = None
+            if n_valid is not None:
+                valid = torch.arange(t, device=dev)[None, :] < torch.tensor(
+                    [[t], [n_valid]], device=dev)
+            got = K.flash_attention(q, k, v, None, valid, **kw)
+            want = K.flash_attention_plain(q, k, v, None, valid, **kw)
+            torch.cuda.synchronize()
+            worst = _check(torch, f"D1 ({h} x {d}) valid={n_valid}", got,
+                           want, tol, worst)
+            if n_valid is None:
+                unmasked = got
+            if h == 32 and n_valid is None:
+                timing = (
+                    cuda_ms(torch, lambda: K.flash_attention(
+                        q, k, v, None, valid, **kw)),
+                    cuda_ms(torch, lambda: K.flash_attention_plain(
+                        q, k, v, None, valid, **kw), iters=3))
+        if h == 16:
+            via_b = K.flash_attention_packed(qkv, h,
+                                             bias_table=kw["bias_table"])
+            worst = _check(torch, "D1 (16 x 64) against kernel B",
+                           K._merge(unmasked), via_b, tol, worst)
+            ms_b = cuda_ms(torch, lambda: K.flash_attention_packed(
+                qkv, h, bias_table=kw["bias_table"]))
+            ms_d = cuda_ms(torch, lambda: K.flash_attention(
+                q, k, v, None, None, **kw))
+            print(f"  (2, 2176) x 16 heads of 64: kernel B {ms_b:.3f} ms, "
+                  f"kernel D1 {ms_d:.3f} ms")
+    print(f"  D1 (2, 2176) x 32 heads of 32: kernel {timing[0]:.3f} ms, "
+          f"plain {timing[1]:.3f} ms")
+    results["D1"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+
+
+def check_kernel_d2(torch, results):
+    """Kernel D2, the generic body: causal with a key mask at the AR
+    latent pass's shape (8, 16, 535, 64), and the bucket-bias mode at
+    (2, 16, 1000, 64) with a ragged row."""
+    from tortoise_tpu_torch.ops.cuda import flash_attention as K
+    from tortoise_tpu_torch.ops.relpos import relative_position_buckets
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    worst, tol = 0.0, 2e-2
+
+    def qkv_of(b, h, t):
+        return tuple(torch.randn((b, h, t, 64), generator=g, device=dev)
+                     .to(torch.bfloat16) for _ in range(3))
+
+    q, k, v = qkv_of(8, 16, 535)
+    valid = torch.ones((8, 535), dtype=torch.bool, device=dev)
+    valid[:, 1 + 30:1 + 32] = False
+    got = K.flash_attention(q, k, v, None, valid, causal=True)
+    want = K.flash_attention_plain(q, k, v, None, valid, causal=True)
+    torch.cuda.synchronize()
+    worst = _check(torch, "D2 causal (8, 16, 535, 64)", got, want, tol,
+                   worst)
+    ms = cuda_ms(torch, lambda: K.flash_attention(q, k, v, None, valid,
+                                                  causal=True))
+    plain_ms = cuda_ms(torch, lambda: K.flash_attention_plain(
+        q, k, v, None, valid, causal=True), iters=3)
+
+    q, k, v = qkv_of(2, 16, 1000)
+    valid = torch.arange(1000, device=dev)[None, :] < torch.tensor(
+        [[1000], [937]], device=dev)
+    kw = dict(bias_buckets=torch.as_tensor(relative_position_buckets(1000),
+                                           device=dev),
+              bias_table=torch.randn((32, 16), generator=g, device=dev) * .3)
+    got = K.flash_attention(q, k, v, None, valid, **kw)
+    want = K.flash_attention_plain(q, k, v, None, valid, **kw)
+    torch.cuda.synchronize()
+    worst = _check(torch, "D2 bucket bias (2, 16, 1000, 64)", got, want,
+                   tol, worst)
+    ms_b = cuda_ms(torch, lambda: K.flash_attention(q, k, v, None, valid,
+                                                    **kw))
+    print(f"  D2 causal (8, 16, 535, 64): kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; bucket bias (2, 16, 1000, 64): kernel "
+          f"{ms_b:.3f} ms")
+    results["D2"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+
+
+def check_wide_heads(torch):
+    """Kernels B and C at head width 128 (8 heads of a 1024 width): their
+    wrappers run kernel D on strided views of the same qkv."""
+    from tortoise_tpu_torch.ops.cuda import flash_attention as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn((2, 2176, 3 * 1024), generator=g,
+                      device=dev).to(torch.bfloat16)
+    bias_vec = K.relpos_bias_vector(
+        torch.randn((32, 8), generator=g, device=dev) * 0.3, 2176)
+    _check(torch, "B at 8 heads of 128 (2, 2176)",
+           K.flash_attention_packed(qkv, 8, bias_vec=bias_vec),
+           K.flash_attention_packed_plain(qkv, 8, None, bias_vec), 2e-2, 0.0)
+    ms_b = cuda_ms(torch, lambda: K.flash_attention_packed(
+        qkv, 8, bias_vec=bias_vec))
+    qkv = torch.randn((8, 535, 3 * 1024), generator=g,
+                      device=dev).to(torch.bfloat16)
+    valid = torch.ones((8, 535), dtype=torch.bool, device=dev)
+    valid[:, 31:33] = False
+    _check(torch, "C at 8 heads of 128 (8, 535)",
+           K.flash_attention_causal_qkv(qkv, 8, valid),
+           K.flash_attention_causal_qkv_plain(qkv, 8, valid), 2e-2, 0.0)
+    ms_c = cuda_ms(torch, lambda: K.flash_attention_causal_qkv(qkv, 8,
+                                                                valid))
+    print(f"  head width 128: B route {ms_b:.3f} ms, C route {ms_c:.3f} ms")
+
+
+def check_kernel_e(torch, results):
+    """Kernel E at the three vocoder stages for 500 latents (M = 2186
+    frames in a 2208 bucket; hops 8, 64, 256; one conv block's slice of
+    the stacked predicted kernels)."""
+    from tortoise_tpu_torch.ops.cuda import lvc as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    L, worst, tol, ms, plain_ms = 2208, 0.0, 1e-4, 0.0, 0.0
+    for hop in (8, 64, 256):
+        t = L * hop
+        x = torch.randn((1, 32, t), generator=g, device=dev)
+        kern = torch.randn((1, 4, 32, 64, 3, L), generator=g,
+                           device=dev) * 0.1
+        bias = torch.randn((1, 64, L), generator=g, device=dev)
+        res = torch.randn((1, 32, t), generator=g, device=dev)
+        args = (x, kern[:, 1], bias, res, hop)
+        got = K.lvc_gated_residual(*args)
+        want = K.lvc_gated_residual_plain(*args)
+        torch.cuda.synchronize()
+        worst = _check(torch, f"E hop {hop} (1, 32, {t})", got, want, tol,
+                       worst)
+        k_ms = cuda_ms(torch, lambda: K.lvc_gated_residual(*args))
+        p_ms = cuda_ms(torch, lambda: K.lvc_gated_residual_plain(*args))
+        print(f"  E hop {hop}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        del x, kern, bias, res, args, got, want
+    print(f"  E one conv block per stage: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms")
+    results["E"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+
+
 def run_request(torch, batch_size: int, out_dir: str, smi: str):
     from tortoise_tpu_torch import cli
     from tortoise_tpu_torch.pipeline.vocoder_stage import audio_length
@@ -352,8 +534,57 @@ def run_request(torch, batch_size: int, out_dir: str, smi: str):
           f"ms/CFG-step [{smi}]")
 
 
-def check_small_agreement(torch):
-    """Tiny f32 parity plane on the card vs the CPU: same decisions."""
+# request 3's configuration: the diffusion fallback (32 heads of 32, so
+# 6 * 32 % 128 != 0 and every attention runs kernel D1) and the fused LVC
+# (kernel E on all 12 conv blocks); widths and T stay full
+FALLBACK = dict(diffusion={"n_head": 32, "use_flash": True},
+                vocoder={"use_pallas_lvc": True})
+
+
+def run_request_3(torch, smi: str):
+    """synthesize() on the fallback + fused-LVC slice at B=1: text -> AR
+    (kernel A) -> diffusion (kernel D1) -> vocoder (kernel E) -> audio,
+    bf16 + int8, the jax sampler, stand-in tokens, zero voice."""
+    import numpy as np
+
+    from tortoise_tpu_torch.pipeline.synthesize import (
+        TortoiseModels,
+        synthesize,
+    )
+    from tortoise_tpu_torch.pipeline.vocoder_stage import audio_length
+
+    models = TortoiseModels.random(0, **FALLBACK)
+    t0 = time.monotonic()
+    res = synthesize(models, tokens=STANDIN_TOKENS,
+                     voice=np.zeros((1024,), np.float32), seed=0,
+                     compute_dtype=torch.bfloat16, int8_weights=True,
+                     device="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    audio, mel = np.asarray(res.audio), np.asarray(res.mel)
+    if not (np.isfinite(audio).all() and np.isfinite(mel).all()):
+        fail("request 3: non-finite audio or mel")
+    want = audio_length(mel.shape[-1])
+    if mel.shape[0] != 100 or audio.shape != (want,):
+        fail(f"request 3: mel {mel.shape}, audio {audio.shape}, want "
+             f"({want},)")
+    dur = len(audio) / res.sample_rate
+    t = res.timings
+    st = {k: round(v, 3) for k, v in t.items()}
+    stages = ("autoregressive_s", "diffusion_s", "vocoder_s")
+    print(f"  request 3 (fallback diffusion, fused LVC): mel {mel.shape}, "
+          f"audio {len(audio)} samples ({dur:.2f} s); stage walls {st}; "
+          f"call wall {wall:.2f} s, RTF {sum(t[k] for k in stages) / dur:.3f}"
+          f", AR {t['ar_decode_loop_s'] / t['ar_decode_steps'] * 1e3:.3f} "
+          f"ms/step, diffusion "
+          f"{t['diffusion_loop_s'] / t['diffusion_steps'] * 1e3:.3f} "
+          f"ms/CFG-step [{smi}]")
+
+
+def check_small_agreement(torch, launch_counts, reset_launch_counts):
+    """Tiny f32 parity plane on the card vs the CPU: same decisions, on
+    the default configs and on the fallback + fused-LVC configs (whose
+    card run must launch kernels D1 and E)."""
     import numpy as np
 
     from tortoise_tpu_torch.pipeline.synthesize import (
@@ -361,24 +592,35 @@ def check_small_agreement(torch):
         synthesize,
     )
 
-    models = TortoiseModels.random(3, tiny=True)
     voice = np.random.default_rng(0).normal(0, 0.5, 64).astype(np.float32)
     toks = [3, 9, 4, 12, 7, 1, 20, 5]
-    runs = [synthesize(models, tokens=toks, voice=voice, seed=5,
-                       sampler="reference", device=d)
-            for d in ("cpu", "cuda")]
-    cpu, gpu = runs
-    if cpu.sequences != gpu.sequences:
-        fail(f"tiny f32 plane: token streams differ {cpu.sequences} vs "
-             f"{gpu.sequences}")
-    for name in ("mel", "audio"):
-        a, b = getattr(gpu, name), getattr(cpu, name)
-        err = float(np.abs(a - b).max())
-        rel = err / max(float(np.abs(b).max()), 1e-30)
-        print(f"  tiny f32 cuda vs cpu {name}: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} (tol rel 1e-3)")
-        if not rel <= 1e-3:
-            fail(f"tiny f32 plane {name} differs between cuda and cpu")
+    # the tiny denoiser's 4 heads of 16 take the fallback route as they are
+    fused = dict(diffusion={"use_flash": True},
+                 vocoder={"use_pallas_lvc": True})
+    for label, cfgs in (("default", {}), ("fallback + fused LVC", fused)):
+        models = TortoiseModels.random(3, tiny=True, **cfgs)
+        cpu = synthesize(models, tokens=toks, voice=voice, seed=5,
+                         sampler="reference", device="cpu")
+        reset_launch_counts()
+        gpu = synthesize(models, tokens=toks, voice=voice, seed=5,
+                         sampler="reference", device="cuda")
+        counts = launch_counts()
+        if cfgs and not (counts["flash_attention_grouped"] > 0
+                         and counts["lvc_gated_residual"] > 0):
+            fail(f"tiny f32 {label}: kernels D1 and E did not run on the "
+                 f"card: {counts}")
+        if cpu.sequences != gpu.sequences:
+            fail(f"tiny f32 {label}: token streams differ {cpu.sequences} "
+                 f"vs {gpu.sequences}")
+        for name in ("mel", "audio"):
+            a, b = getattr(gpu, name), getattr(cpu, name)
+            err = float(np.abs(a - b).max())
+            rel = err / max(float(np.abs(b).max()), 1e-30)
+            print(f"  tiny f32 {label} cuda vs cpu {name}: max_abs_err="
+                  f"{err:.3e} rel={rel:.3e} (tol rel 1e-3)")
+            if not rel <= 1e-3:
+                fail(f"tiny f32 {label} {name} differs between cuda and "
+                     f"cpu")
 
 
 def main(argv=None) -> int:
@@ -427,42 +669,68 @@ def main(argv=None) -> int:
     check_kernel_a(torch, results)
     check_kernel_b(torch, results)
     check_kernel_c(torch, results)
+    check_kernel_d1(torch, results)
+    check_kernel_d2(torch, results)
+    check_wide_heads(torch)
+    check_kernel_e(torch, results)
     if args.profile:
         print("[profile] torch.profiler", flush=True)
         profile_phase(torch)
         return 0
 
+    pallas = "tortoise_tpu/ops/pallas/"
     kernels = {
         "A": ("fused_decode_trunk", "decode_trunk",
               "tortoise_tpu_torch/csrc/decode_trunk.cu",
-              "tortoise_tpu/ops/pallas/decode_trunk.py:277"),
+              pallas + "decode_trunk.py:277"),
         "B": ("flash_attention_packed", "flash_attention_packed",
               "tortoise_tpu_torch/csrc/flash_attention.cu",
-              "tortoise_tpu/ops/pallas/flash_attention.py:269"),
+              pallas + "flash_attention.py:269"),
         "C": ("flash_attention_causal_qkv", "flash_attention_causal_qkv",
               "tortoise_tpu_torch/csrc/flash_attention.cu",
-              "tortoise_tpu/ops/pallas/flash_attention.py:441"),
+              pallas + "flash_attention.py:441"),
+        "D1": ("flash_attention (grouped band-bias body)",
+               "flash_attention_grouped",
+               "tortoise_tpu_torch/csrc/flash_attention_bhtd.cu",
+               pallas + "flash_attention.py:154"),
+        "D2": ("flash_attention (generic body)", "flash_attention_generic",
+               "tortoise_tpu_torch/csrc/flash_attention_bhtd.cu",
+               pallas + "flash_attention.py:549"),
+        "E": ("lvc_gated_residual", "lvc_gated_residual",
+              "tortoise_tpu_torch/csrc/lvc.cu", pallas + "lvc.py:50"),
     }
-    print("[4/5] end to end through the CLI (full width, random weights, "
+    # each request is one path: counts set to 0 just before it, read just
+    # after. Kernels every request of its path must launch, and kernels
+    # it must not launch:
+    needs = {1: ("A", "B"), 2: ("A", "B", "C"), 3: ("A", "D1", "E")}
+    print("[4/5] end to end at full production width (random weights, "
           "bf16 + int8)", flush=True)
+    per_request = {}
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
-        reset_launch_counts()
-        run_request(torch, 1, out_dir, smi)
-        c1 = launch_counts()
-        run_request(torch, 8, out_dir, smi)
-        c2 = launch_counts()
-    print(f"  launches: request 1 {c1}; both requests {c2}")
-    for key in ("A", "B"):
-        if c1[kernels[key][1]] < 1:
-            fail(f"request 1 did not launch kernel {key}")
-    for key in ("A", "B", "C"):
-        if c2[kernels[key][1]] - c1[kernels[key][1]] < 1:
-            fail(f"request 2 did not launch kernel {key}")
-    counts = {k: c2[kernels[k][1]] for k in kernels}
+        for r, batch_size in ((1, 1), (2, 8)):
+            reset_launch_counts()
+            run_request(torch, batch_size, out_dir, smi)
+            per_request[r] = launch_counts()
+    reset_launch_counts()
+    run_request_3(torch, smi)
+    per_request[3] = launch_counts()
+    for r, c in per_request.items():
+        print(f"  launches, request {r}: {c}")
+        for key in needs[r]:
+            if c[kernels[key][1]] < 1:
+                fail(f"request {r} did not launch kernel {key}")
+    c3 = per_request[3]
+    if c3["flash_attention_packed"] != 0:
+        fail(f"request 3 launched kernel B: {c3}")
+    if c3["lvc_gated_residual"] != 12:
+        fail(f"request 3 launched kernel E {c3['lvc_gated_residual']} "
+             f"times, want 12 (4 conv blocks x 3 stages)")
+    counts = {k: sum(c[w] for c in per_request.values())
+              for k, (_, w, _, _) in kernels.items()}
 
     print("[5/5] small-input agreement (tiny f32 plane, cuda vs cpu)",
           flush=True)
-    check_small_agreement(torch)
+    check_small_agreement(torch, launch_counts, reset_launch_counts)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

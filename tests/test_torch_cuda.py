@@ -5,8 +5,9 @@ file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerance: 2e-2 of the reference's max magnitude (bf16 outputs, another
-summation order); the in-kernel sampler must pick the plain sampler's
-token on the kernel's own logits.
+summation order); 1e-4 for f32 inputs (kernel D's f32 body, kernel E);
+the in-kernel sampler must pick the plain sampler's token on the
+kernel's own logits.
 """
 
 import dataclasses
@@ -20,6 +21,7 @@ from tortoise_tpu.io.checkpoint import random_ar_params
 from tortoise_tpu_torch.ops.basic import pdot_int8act
 from tortoise_tpu_torch.ops.cuda import decode_trunk as TA
 from tortoise_tpu_torch.ops.cuda import flash_attention as TF
+from tortoise_tpu_torch.ops.cuda import lvc as TL
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline.ar_stage import quantize_ar
 
@@ -140,3 +142,122 @@ def test_int8_cast_on_card_equals_cpu(cuda_device):
 
     for g, w in zip(flat(got), flat(want), strict=True):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n_valid", [None, 151])
+def test_grouped_kernel_d1_matches_plain_on_card(cuda_device, d, n_valid):
+    """Kernel D1 on strided views of a per-head-interleaved qkv, the
+    diffusion fallback's call."""
+    b, h, t = 2, 3, 190
+    qkv = torch.tensor(_qkv(b, t, h, d, d)).bfloat16().to(cuda_device)
+    q, k, v = (qkv.reshape(b, t, h, 3, d)[:, :, :, p].transpose(1, 2)
+               for p in range(3))
+    table = torch.randn(32, h, device=cuda_device) * 0.3
+    valid = None
+    if n_valid is not None:
+        valid = torch.arange(t, device=cuda_device)[None, :] < torch.tensor(
+            [[t], [n_valid]], device=cuda_device)
+    kw = dict(bias_table=table, bias_formula=True)
+    before = TF._grouped_flash.launches
+    got = TF.flash_attention(q, k, v, None, valid, **kw)
+    assert TF._grouped_flash.launches == before + 1
+    want = TF.flash_attention_plain(q, k, v, None, valid, **kw)
+    assert got.dtype == torch.bfloat16
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("mode", ["none", "materialized", "buckets",
+                                  "causal_masked", "formula_f32"])
+def test_generic_kernel_d2_matches_plain_on_card(cuda_device, dtype, tol,
+                                                 mode):
+    from tortoise_tpu_torch.ops.relpos import relative_position_buckets
+
+    b, h, t, d = 2, 2, 150, 32
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device=cuda_device)
+               .to(dtype) for _ in range(3))
+    table = torch.randn(32, h, device=cuda_device) * 0.3
+    valid = torch.ones((b, t), dtype=torch.bool, device=cuda_device)
+    valid[1, 131:] = False
+    valid[0, 5:9] = False
+    kw = {}
+    if mode == "materialized":
+        kw["bias"] = torch.randn((h, t, t), generator=g, device=cuda_device)
+    elif mode == "buckets":
+        kw.update(bias_buckets=torch.tensor(relative_position_buckets(t),
+                                            device=cuda_device),
+                  bias_table=table)
+    elif mode == "formula_f32":
+        # D1's rule with f32 inputs (the f32 parity plane's denoiser)
+        kw.update(bias_table=table, bias_formula=True)
+    causal = mode == "causal_masked"
+    got = TF.flash_attention(q, k, v, kv_valid=valid, causal=causal, **kw)
+    want = TF.flash_attention_plain(q, k, v, kv_valid=valid, causal=causal,
+                                    **kw)
+    assert got.dtype == want.dtype
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), tol)
+
+
+@pytest.mark.cuda
+def test_kernel_d_rejects_other_head_widths(cuda_device):
+    q = torch.zeros((1, 2, 16, 48), dtype=torch.bfloat16,
+                    device=cuda_device)
+    with pytest.raises(ValueError, match="head width"):
+        TF.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_packed_and_causal_kernels_take_head_width_128(cuda_device):
+    """Kernels B and C at the other head width the JAX package routes to
+    them: the wrappers run kernel D on strided views of the same qkv."""
+    h, t = 2, 230
+    qkv = torch.tensor(_qkv(2, t, h, 128, 7)).bfloat16().to(cuda_device)
+    valid = torch.arange(t, device=cuda_device)[None, :] < torch.tensor(
+        [[t], [201]], device=cuda_device)
+    bias_vec = TF.relpos_bias_vector(
+        torch.randn(32, h, device=cuda_device) * 0.3, t)
+    got = TF.flash_attention_packed(qkv, h, valid, bias_vec=bias_vec)
+    want = TF.flash_attention_packed_plain(qkv, h, valid, bias_vec)
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+    got = TF.flash_attention_causal_qkv(qkv, h, valid)
+    want = TF.flash_attention_causal_qkv_plain(qkv, h, valid)
+    assert got.dtype == torch.bfloat16
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
+def test_packed_kernel_b_equals_d1_on_one_qkv(cuda_device):
+    """Kernels B and D1 compute the same function from two layouts."""
+    b, h, t, d = 2, 4, 300, 64
+    qkv = torch.tensor(_qkv(b, t, h, d, 8)).bfloat16().to(cuda_device)
+    table = torch.randn(32, h, device=cuda_device) * 0.3
+    via_b = TF.flash_attention_packed(qkv, h, bias_table=table)
+    q, k, v = (qkv.reshape(b, t, h, 3, d)[:, :, :, p].transpose(1, 2)
+               for p in range(3))
+    via_d = TF.flash_attention(q, k, v, bias_table=table, bias_formula=True)
+    assert_close(via_d.transpose(1, 2).reshape(b, t, h * d).float().cpu()
+                 .numpy(), via_b.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_res,l,hop", [(32, 32, 23, 8),
+                                              (32, 32, 9, 64),
+                                              (32, 32, 5, 256),
+                                              (4, 4, 11, 2), (8, 8, 6, 16)])
+def test_lvc_kernel_matches_plain_on_card(cuda_device, c_in, c_res, l, hop):
+    g = torch.Generator(device=cuda_device).manual_seed(hop)
+    x = torch.randn((2, c_in, l * hop), generator=g, device=cuda_device)
+    kern_all = torch.randn((2, 4, c_in, 2 * c_res, 3, l), generator=g,
+                           device=cuda_device) * 0.1
+    bias = torch.randn((2, 2 * c_res, l), generator=g, device=cuda_device)
+    res = torch.randn((2, c_res, l * hop), generator=g, device=cuda_device)
+    before = TL.lvc_gated_residual.launches
+    got = TL.lvc_gated_residual(x, kern_all[:, 1], bias, res, hop)
+    assert TL.lvc_gated_residual.launches == before + 1
+    want = TL.lvc_gated_residual_plain(x, kern_all[:, 1], bias, res, hop)
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)

@@ -22,6 +22,8 @@ bad = sorted(k for k in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 15, names
+assert {"tortoise_tpu_torch.ops.cuda.lvc",
+        "tortoise_tpu_torch.ops.cuda.flash_attention"} <= set(names), names
 """
 
 
@@ -45,3 +47,21 @@ def test_chip_smoke_imports_without_jax_and_needs_a_card():
         src = f.read()
     assert "import jax" not in src and "from jax" not in src
     assert "tortoise_tpu." not in src.replace("tortoise_tpu_torch", "")
+
+
+def test_c_entry_points_match_their_ctypes_signatures():
+    """Every C entry point in csrc/ has a ctypes signature with its
+    argument count, and every signature names an entry point (a missing
+    or short signature would pass pointers as 32-bit ints)."""
+    import re
+
+    from tortoise_tpu_torch.ops.cuda import build
+
+    exported = {}
+    for src in build.SRC_DIR.glob("*.cu"):
+        for name, params in re.findall(
+                r"TT_EXPORT\s+[\w ]+?\s(\w+)\(([^)]*)\)", src.read_text()):
+            exported[name] = len(params.split(","))
+    assert exported.keys() == build.SIGNATURES.keys()
+    for name, n in exported.items():
+        assert len(build.SIGNATURES[name]) == n, name

@@ -38,30 +38,9 @@ constexpr int kBQ = 16 * kWarps;  // query rows per block (16 per warp)
 constexpr int kBK = 64;           // keys per shared-memory tile
 constexpr int kLd = kD + 8;       // padded smem row (bf16 elements)
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += a (16x16 row-major bf16) * b (16x8 column-major bf16), f32 sums
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two 8x8 bf16 matrices from shared memory, transposed: lanes 0-7 give
-// the row addresses of the first, lanes 8-15 of the second.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* row) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(a));
-}
+using tt::ldmatrix_x2_trans;
+using tt::mma_bf16;
+using tt::pack_bf16;
 
 template <bool kInterleaved, bool kCausal>
 __global__ void __launch_bounds__(kThreads)

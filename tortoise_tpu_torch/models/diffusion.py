@@ -11,7 +11,9 @@ per-head interleaved, c = h*3D + part*D + d.
 
 Internals are time-major (B, T, C); ``denoise`` and ``code_embeddings``
 keep the (B, C, T) views at their boundary. With ``cfg.use_flash`` every
-attention goes through kernel B (``ops.cuda.flash_attention``) — on a
+attention goes through a kernel of ``ops.cuda.flash_attention`` — kernel
+B when the packed route takes the head layout (``use_packed``), else
+kernel D1 (the JAX package's fallback ``flash_attention`` route): on a
 CUDA tensor the hand-written kernel, on the CPU its plain version.
 """
 
@@ -22,7 +24,10 @@ import torch
 from tortoise_tpu.config import DiffusionConfig
 from tortoise_tpu_torch.ops.basic import group_norm_tc, pdot, pdot_int8act, silu
 from tortoise_tpu_torch.ops.conv import conv1d_nwc
-from tortoise_tpu_torch.ops.cuda.flash_attention import flash_attention_packed
+from tortoise_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention,
+    flash_attention_packed,
+)
 from tortoise_tpu_torch.ops.relpos import relpos_bias
 
 NEG_INF = -1e30
@@ -70,10 +75,16 @@ def _attention(block, x, buckets, cfg: DiffusionConfig, mask=None,
             bias_table=block["attn_rel_w"],
             bias_max_distance=cfg.rel_pos_max_distance)
     elif cfg.use_flash:
-        raise NotImplementedError(
-            f"the generic flash attention kernel (odd heads or "
-            f"6*d_head % 128 != 0; here H={h}, d_head={dh}) is not ported "
-            f"yet; run with use_flash=False")
+        # kernel D1 on strided (B, H, T, D) views of the fused qkv; on a
+        # card it writes (B, T, H, D) memory, so the merge copies nothing
+        kv_valid = None if mask is None else mask.expand(b, t)
+        qkv5 = qkv.to(compute_dtype or x.dtype).reshape(b, t, h, 3, dh)
+        q, k, v = (qkv5[:, :, :, part].transpose(1, 2) for part in range(3))
+        ctx = flash_attention(q, k, v, None, kv_valid,
+                              bias_table=block["attn_rel_w"],
+                              bias_formula=True,
+                              bias_max_distance=cfg.rel_pos_max_distance)
+        merged = ctx.transpose(1, 2).reshape(b, t, h * dh)
     else:
         q, k, v = qkv.reshape(b, t, h, 3, dh).permute(3, 0, 2, 1, 4)
         scores = pdot(q, k.transpose(-1, -2), compute_dtype) / (

@@ -6,8 +6,10 @@ noise (64 ch) -> reflect pad 3 -> conv_pre k7 -> 3 upsample stages
 4 conv blocks: leaky -> dilated conv k3 -> leaky -> LVC -> gated
 sigmoid*tanh -> residual) -> leaky -> conv_post k7 with no padding, so
 audio length = M*256 - 6. The LVC runs as one batched matmul per hop
-chunk. With a bucketed length (``mel_len``) every stage masks past the
-true length and the input reflection is written at the true edges.
+chunk, or with ``cfg.use_pallas_lvc`` as kernel E (``ops.cuda.lvc``),
+which fuses it with the gate and the residual add. With a bucketed
+length (``mel_len``) every stage masks past the true length and the
+input reflection is written at the true edges.
 """
 
 from __future__ import annotations
@@ -17,7 +19,13 @@ import torch.nn.functional as F
 
 from tortoise_tpu.config import VocoderConfig
 from tortoise_tpu_torch.ops.basic import leaky_relu
-from tortoise_tpu_torch.ops.conv import conv1d, conv_transpose1d, reflect_pad1d
+from tortoise_tpu_torch.ops.conv import (
+    conv1d,
+    conv_transpose1d,
+    location_variable_conv,
+    reflect_pad1d,
+)
+from tortoise_tpu_torch.ops.cuda.lvc import lvc_gated_residual
 
 
 def _mask_time(x, valid_len):
@@ -71,24 +79,6 @@ def kernel_predictor(stage, mel, cfg: VocoderConfig, valid_len=None,
     return kernels, biases.reshape(b, nblk, cfg.lvc_out_ch, l)
 
 
-def location_variable_conv(x, kernel, bias, hop: int, compute_dtype=None):
-    """x (B, C_in, T); kernel (B, C_in, C_out, K, L); bias (B, C_out, L);
-    T = L*hop. One batched matmul per hop chunk."""
-    b, c_in, t = x.shape
-    _, _, c_out, k, l = kernel.shape
-    pad = (k - 1) // 2
-    xp = F.pad(x, (pad, pad))
-    # windows[b, l, s, k*C_in + i] = xp[b, i, l*hop + s + k] (tap-major)
-    shifted = torch.cat([xp[:, :, j:j + t] for j in range(k)], dim=1)
-    win = shifted.transpose(1, 2).reshape(b, l, hop, c_in * k)
-    kern = kernel.permute(0, 4, 3, 1, 2).reshape(b, l, c_in * k, c_out)
-    if compute_dtype is not None:
-        win, kern = win.to(compute_dtype), kern.to(compute_dtype)
-    out = torch.matmul(win.float(), kern.float())  # (B, L, hop, C_out)
-    out = out + bias.transpose(1, 2)[:, :, None, :]
-    return out.permute(0, 3, 1, 2).reshape(b, c_out, l * hop)
-
-
 def vocoder_forward(params, cfg: VocoderConfig, mel, noise, mel_len=None,
                     compute_dtype=None):
     """mel (B, n_mel, M) denormalized + pad frames (+ zero bucket padding
@@ -125,9 +115,16 @@ def vocoder_forward(params, cfg: VocoderConfig, mel, noise, mel_len=None,
             y = conv1d(y, stage["cb_w"][c], stage["cb_b"][c], padding=dil,
                        dilation=dil, compute_dtype=compute_dtype)
             y = _mask_time(leaky_relu(y, cfg.leaky_slope), valid)
-            y = location_variable_conv(y, kernels[:, c], biases[:, c], hop,
-                                       compute_dtype)
-            x = x + torch.sigmoid(y[:, :cfg.ch]) * torch.tanh(y[:, cfg.ch:])
+            if cfg.use_pallas_lvc:
+                # kernel E: LVC, gate and residual in one pass, in f32
+                # whatever compute_dtype is (like the JAX fused route)
+                x = lvc_gated_residual(y.float(), kernels[:, c].float(),
+                                       biases[:, c].float(), x.float(), hop)
+            else:
+                y = location_variable_conv(y, kernels[:, c], biases[:, c],
+                                           hop, compute_dtype)
+                x = x + torch.sigmoid(y[:, :cfg.ch]) * torch.tanh(
+                    y[:, cfg.ch:])
             x = _mask_time(x, valid)
     x = leaky_relu(x, cfg.leaky_slope)
     x = _mask_time(x, None if mel_len is None else mel_len * up)

@@ -106,3 +106,21 @@ def nearest_upscale_time(x, out_len: int):
     in_len = x.shape[-1]
     idx = torch.arange(out_len, device=x.device) * in_len // out_len
     return x[..., idx]
+
+
+def location_variable_conv(x, kernel, bias, hop: int, compute_dtype=None):
+    """x (B, C_in, T); kernel (B, C_in, C_out, K, L); bias (B, C_out, L);
+    T = L*hop. One batched matmul per hop chunk."""
+    b, c_in, t = x.shape
+    _, _, c_out, k, l = kernel.shape
+    pad = (k - 1) // 2
+    xp = F.pad(x, (pad, pad))
+    # windows[b, l, s, k*C_in + i] = xp[b, i, l*hop + s + k] (tap-major)
+    shifted = torch.cat([xp[:, :, j:j + t] for j in range(k)], dim=1)
+    win = shifted.transpose(1, 2).reshape(b, l, hop, c_in * k)
+    kern = kernel.permute(0, 4, 3, 1, 2).reshape(b, l, c_in * k, c_out)
+    if compute_dtype is not None:
+        win, kern = win.to(compute_dtype), kern.to(compute_dtype)
+    out = torch.matmul(win.float(), kern.float())  # (B, L, hop, C_out)
+    out = out + bias.transpose(1, 2)[:, :, None, :]
+    return out.permute(0, 3, 1, 2).reshape(b, c_out, l * hop)

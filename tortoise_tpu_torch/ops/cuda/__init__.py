@@ -4,15 +4,16 @@ library is compiled on the first CUDA call (see ``build``)."""
 
 
 def _wrappers():
+    from tortoise_tpu_torch.ops.cuda import flash_attention as fa
     from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
-    from tortoise_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention_causal_qkv,
-        flash_attention_packed,
-    )
+    from tortoise_tpu_torch.ops.cuda.lvc import lvc_gated_residual
 
     return {"decode_trunk": fused_decode_trunk,
-            "flash_attention_packed": flash_attention_packed,
-            "flash_attention_causal_qkv": flash_attention_causal_qkv}
+            "flash_attention_packed": fa.flash_attention_packed,
+            "flash_attention_causal_qkv": fa.flash_attention_causal_qkv,
+            "flash_attention_grouped": fa._grouped_flash,
+            "flash_attention_generic": fa._generic_flash,
+            "lvc_gated_residual": lvc_gated_residual}
 
 
 def launch_counts() -> dict:

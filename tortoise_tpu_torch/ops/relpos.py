@@ -38,14 +38,6 @@ def relative_position_buckets(length: int, num_buckets: int = 32,
     return bucket_of_delta(j - i, num_buckets, max_distance)
 
 
-def toeplitz_bucket_ids(length: int, num_buckets: int = 32,
-                        max_distance: int = 64) -> np.ndarray:
-    """(2*length - 1,) bucket ids for j - i = -(length-1) .. length-1; the
-    (i, j) id is element (j - i) + length - 1."""
-    return bucket_of_delta(np.arange(-(length - 1), length), num_buckets,
-                           max_distance)
-
-
 def relpos_bias(weight: torch.Tensor, buckets: torch.Tensor,
                 scale: float = 8.0) -> torch.Tensor:
     """Gather the (buckets, heads) table into an additive (heads, L, L)

@@ -119,8 +119,8 @@ def _masks(lat_lens, out_lens, lat_pad, out_pad, device):
 
 def _buckets(length: int, cfg: DiffusionConfig, device):
     """(length, length) rel-pos bucket ids for the plain attention path;
-    None when kernel B runs (it builds its own Toeplitz bias)."""
-    if dmodel.use_packed(cfg):
+    None when a kernel runs (B and D1 build their own Toeplitz bias)."""
+    if cfg.use_flash:
         return None
     return torch.as_tensor(relative_position_buckets(
         length, cfg.rel_pos_buckets, cfg.rel_pos_max_distance),

@@ -68,10 +68,15 @@ class TortoiseModels:
         )
 
     @classmethod
-    def random(cls, seed: int = 0, tiny: bool = False) -> "TortoiseModels":
+    def random(cls, seed: int = 0, tiny: bool = False,
+               diffusion: Optional[dict] = None,
+               vocoder: Optional[dict] = None) -> "TortoiseModels":
         """Synthetic weights with the production (or tiny) tensor
         inventory, drawn by the JAX package's own ``random_*_params``
-        (float32 stream) — both packages run identical weights."""
+        (float32 stream) — both packages run identical weights.
+        ``diffusion`` / ``vocoder`` replace config fields before the
+        weights are drawn, e.g. ``diffusion={"n_head": 32,
+        "use_flash": True}`` sizes the rel-pos tables for 32 heads."""
         from tortoise_tpu.config import (
             tiny_ar_config,
             tiny_diffusion_config,
@@ -84,8 +89,12 @@ class TortoiseModels:
         )
 
         acfg = tiny_ar_config() if tiny else ARConfig()
-        dcfg = tiny_diffusion_config() if tiny else DiffusionConfig()
-        vcfg = tiny_vocoder_config() if tiny else VocoderConfig()
+        dcfg = dataclasses.replace(
+            tiny_diffusion_config() if tiny else DiffusionConfig(),
+            **(diffusion or {}))
+        vcfg = dataclasses.replace(
+            tiny_vocoder_config() if tiny else VocoderConfig(),
+            **(vocoder or {}))
         return cls(
             ar_params=random_ar_params(acfg, seed, fast=True),
             diffusion_params=random_diffusion_params(dcfg, seed + 1,
