@@ -77,6 +77,30 @@ def test_packed_kernel_matches_plain_on_card(cuda_device, t, n_valid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,lens", [(96, None), (384, None),
+                                    (200, (200, 131, 77, 200))])
+def test_packed_kernel_at_serving_shapes_on_card(cuda_device, t, lens):
+    """Kernel B at the stream's window lengths (96 is not a multiple of
+    its 64-key tile) and on a batch's 2B CFG rows with ragged per-row
+    key masks (each length twice: the conditioned and unconditioned
+    halves)."""
+    h = 16
+    valid = None
+    b = 2 if lens is None else 2 * len(lens)
+    qkv = torch.tensor(_qkv(b, t, h, 64, t)).bfloat16().to(cuda_device)
+    if lens is not None:
+        n = torch.tensor(list(lens) * 2, device=cuda_device)[:, None]
+        valid = torch.arange(t, device=cuda_device)[None, :] < n
+    bias_vec = TF.relpos_bias_vector(
+        torch.randn(32, h, device=cuda_device) * 0.3, t)
+    before = TF.flash_attention_packed.launches
+    got = TF.flash_attention_packed(qkv, h, valid, bias_vec=bias_vec)
+    assert TF.flash_attention_packed.launches == before + 1
+    want = TF.flash_attention_packed_plain(qkv, h, valid, bias_vec)
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
 def test_causal_kernel_matches_plain_on_card(cuda_device):
     h, s = 4, 200
     qkv = torch.tensor(_qkv(3, s, h, 64, 4)).bfloat16().to(cuda_device)
@@ -88,7 +112,7 @@ def test_causal_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("b", [1, 3, 16])
 def test_decode_kernel_matches_plain_on_card(cuda_device, b):
     cfg = dataclasses.replace(tiny_ar_config(), d_model=128, n_head=2,
                               d_mlp=256, n_mel_vocab=300)
@@ -248,7 +272,12 @@ def test_packed_kernel_b_equals_d1_on_one_qkv(cuda_device):
 @pytest.mark.parametrize("c_in,c_res,l,hop", [(32, 32, 23, 8),
                                               (32, 32, 9, 64),
                                               (32, 32, 5, 256),
-                                              (4, 4, 11, 2), (8, 8, 6, 16)])
+                                              (4, 4, 11, 2), (8, 8, 6, 16),
+                                              # a stream chunk: one 32-frame
+                                              # bucket at each stage's hop
+                                              (32, 32, 32, 8),
+                                              (32, 32, 32, 64),
+                                              (32, 32, 32, 256)])
 def test_lvc_kernel_matches_plain_on_card(cuda_device, c_in, c_res, l, hop):
     g = torch.Generator(device=cuda_device).manual_seed(hop)
     x = torch.randn((2, c_in, l * hop), generator=g, device=cuda_device)
@@ -261,3 +290,46 @@ def test_lvc_kernel_matches_plain_on_card(cuda_device, c_in, c_res, l, hop):
     assert TL.lvc_gated_residual.launches == before + 1
     want = TL.lvc_gated_residual_plain(x, kern_all[:, 1], bias, res, hop)
     assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+def test_server_batch_on_card_launches_kernels_a_and_b(cuda_device):
+    """A SynthesisServer batch on the card (bf16 + int8, a narrow AR and
+    denoiser of 64-wide heads so kernels A and B take them): three ragged
+    requests land in one batch padded to 4 and launch both kernels."""
+    from tortoise_tpu.config import tiny_diffusion_config, tiny_vocoder_config
+    from tortoise_tpu.io.checkpoint import (
+        random_diffusion_params,
+        random_vocoder_params,
+    )
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels
+    from tortoise_tpu_torch.serve import SynthesisServer
+
+    acfg = dataclasses.replace(tiny_ar_config(), d_model=128, n_head=2,
+                               d_mlp=256, max_decode_steps=8)
+    dcfg = dataclasses.replace(tiny_diffusion_config(), d_model=128,
+                               n_head=2, timestep_dim=128,
+                               n_sample_timesteps=4, use_flash=True)
+    vcfg = tiny_vocoder_config()
+    models = TortoiseModels(random_ar_params(acfg, 0),
+                            random_diffusion_params(dcfg, 1),
+                            random_vocoder_params(vcfg, 2), acfg, dcfg, vcfg)
+    rng = np.random.default_rng(0)
+    voice = rng.normal(0, 0.5, (128,)).astype(np.float32)
+    server = SynthesisServer(models, compute_dtype=torch.bfloat16,
+                             int8_weights=True, max_batch=4,
+                             max_wait_ms=2000, default_voice=voice,
+                             device=cuda_device)
+    reset_launch_counts()
+    with server:
+        futs = [server.submit(tokens=[1] + rng.integers(3, 30, size=n)
+                              .tolist() + [0], seed=1) for n in (3, 6, 9)]
+        results = [f.result(timeout=60) for f in futs]
+    counts = launch_counts()
+    assert counts["decode_trunk"] > 0, counts
+    assert counts["flash_attention_packed"] > 0, counts
+    st = server.stats()
+    assert (st["batches"], st["rows"], st["padded_rows"]) == (1, 3, 1)
+    for r in results:
+        assert len(r.audio) > 0 and np.isfinite(r.audio).all()

@@ -23,7 +23,21 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 15, names
 assert {"tortoise_tpu_torch.ops.cuda.lvc",
-        "tortoise_tpu_torch.ops.cuda.flash_attention"} <= set(names), names
+        "tortoise_tpu_torch.ops.cuda.flash_attention",
+        "tortoise_tpu_torch.serve",
+        "tortoise_tpu_torch.pipeline.streaming"} <= set(names), names
+"""
+
+SERVING_PROBE = """
+import sys
+import tortoise_tpu_torch.serve, tortoise_tpu_torch.pipeline.streaming
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith(("jax.", "jaxlib", "tortoise_tpu.")
+                                           ) and not k.startswith(
+                 ("tortoise_tpu.config", "tortoise_tpu.io",
+                  "tortoise_tpu.text", "tortoise_tpu.rng",
+                  "tortoise_tpu.native")))
+assert not bad, bad
 """
 
 
@@ -31,6 +45,15 @@ def test_port_imports_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_serving_modules_import_without_jax():
+    """The server and the streaming path, imported alone, pull in no JAX
+    and, of the JAX package, only its jax-free host modules."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", SERVING_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -11,6 +11,7 @@ rounding differences between XLA and PyTorch (see test_torch_models)
 compound over the 80 denoising steps.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -107,8 +108,87 @@ def test_cli_runs_on_cpu(tmp_path, args):
 
 @pytest.mark.parametrize("flag", ["--stream", "--messages-file=x.txt"])
 def test_cli_rejects_unported_modes(flag):
+    """What the streaming and batched modes do not take, as in the JAX
+    CLI: both run the jax sampler at one candidate, so --sampler
+    reference and --batch-size are refused with them, before any model
+    is built."""
     from tortoise_tpu_torch import cli
 
+    for extra in (["--sampler", "reference"], ["--batch-size", "2"]):
+        with pytest.raises(SystemExit) as e:
+            cli.main([flag, "--random-weights", "--tiny", "--device", "cpu"]
+                     + extra)
+        assert e.value.code != 0 and "jax-sampler" in str(e.value.code)
+
+
+@pytest.mark.parametrize("extra", [["--stream"], ["--tokens", "1,4,0"]])
+def test_cli_messages_file_conflicting_flags(tmp_path, extra):
+    from tortoise_tpu_torch import cli
+
+    path = tmp_path / "m.txt"
+    path.write_text("one\n")
     with pytest.raises(SystemExit) as e:
-        cli.main([flag, "--random-weights", "--tiny"])
-    assert e.value.code != 0
+        cli.main(["--messages-file", str(path), "--random-weights", "--tiny",
+                  "--device", "cpu"] + extra)
+    assert "conflicts" in str(e.value.code)
+
+
+def test_cli_messages_file_runs_on_cpu(tmp_path):
+    """--messages-file: one synthesize_batch over the file's lines (blank
+    lines skipped), one WAV per line with a -<i> suffix, each row the
+    same as synthesize_batch on the same models, tokens and seed."""
+    from tortoise_tpu.io.wav import read_wav
+    from tortoise_tpu_torch import cli
+    from tortoise_tpu_torch.pipeline.vocoder_stage import audio_length
+
+    path = tmp_path / "m.txt"
+    path.write_text("hello there\n\nsecond line\nthird one here\n")
+    out = str(tmp_path / "out.wav")
+    argv = ["--messages-file", str(path), "--random-weights", "--tiny",
+            "--seed", "3", "--device", "cpu", "--diffusion-steps", "4",
+            "--bf16", "--int8-weights", "--top-k", "9", "--output", out]
+    results = cli.run(argv)
+    assert cli.main(argv) == 0
+    assert len(results) == 3
+    models = T.TortoiseModels.random(3, tiny=True)
+    models.diffusion_cfg = dataclasses.replace(
+        models.diffusion_cfg, n_sample_timesteps=4, use_flash=False)
+    want = T.synthesize_batch(
+        models, tokens_list=[r.tokens for r in results],
+        voices=np.zeros(64, np.float32), seed=3, compute_dtype=torch.bfloat16,
+        int8_weights=True, sampler_params={"top_k": 9}, device="cpu")
+    for i, (r, w) in enumerate(zip(results, want)):
+        assert r.sequences == w.sequences
+        np.testing.assert_array_equal(r.audio, w.audio)
+        assert r.audio.shape == (audio_length(r.mel.shape[-1],
+                                              tiny_vocoder_config()),)
+        assert read_wav(str(tmp_path / f"out-{i}.wav"))[0].shape == \
+            r.audio.shape
+
+
+def test_cli_stream_runs_on_cpu(tmp_path):
+    """--stream with the window flags: the written WAV is the chunks in
+    order, and the chunks are stream_synthesize's on the same models."""
+    from tortoise_tpu.io.wav import read_wav
+    from tortoise_tpu_torch import cli
+    from tortoise_tpu_torch.pipeline import streaming
+
+    out = str(tmp_path / "s.wav")
+    geom = dict(window_frames=24, overlap_frames=8, first_window_frames=16,
+                vocoder_margin=8)
+    chunks = cli.run(["--stream", "--random-weights", "--tiny", "--seed",
+                      "2", "--device", "cpu", "--diffusion-steps", "4",
+                      "--tokens", ",".join(map(str, TOKENS)),
+                      "--stream-window", "24", "--stream-overlap", "8",
+                      "--stream-first-window", "16", "--vocoder-margin", "8",
+                      "--output", out])
+    assert len(chunks) > 1 and chunks[-1].final
+    audio = streaming.collect_stream(chunks)
+    np.testing.assert_array_equal(read_wav(out)[0], audio)
+    models = T.TortoiseModels.random(2, tiny=True)
+    models.diffusion_cfg = dataclasses.replace(
+        models.diffusion_cfg, n_sample_timesteps=4, use_flash=False)
+    want = streaming.collect_stream(streaming.stream_synthesize(
+        models, tokens=TOKENS, voice=np.zeros(64, np.float32), seed=2,
+        device="cpu", **geom))
+    np.testing.assert_array_equal(audio, want)

@@ -6,9 +6,10 @@ Two sampler planes:
 - ``sampler="jax"`` (the production plane's name in both packages): the
   whole loop stays on the device, drawing per-row uniforms from a
   ``torch.Generator`` seeded by ``seed``. On the bf16 + int8 plane each
-  step is one call of kernel A with its in-kernel sampler. The uniforms
-  are not jax.random's, so token streams differ from the JAX package's
-  on this plane.
+  step is one call of kernel A with its in-kernel sampler (B <= 16,
+  top_k <= 128). The uniforms are not jax.random's, so token streams
+  differ from the JAX package's on this plane unless a test replays the
+  JAX key chain through ``draw_uniform``.
 - ``sampler="reference"``: host loop driven by the mt19937
   ``tortoise_tpu.rng.ReferenceRng``, reproducing the reference's seeded
   decision stream — the plane the port is held to token for token.
@@ -32,7 +33,8 @@ from tortoise_tpu_torch.models import ar
 from tortoise_tpu_torch.ops import sampling as S
 from tortoise_tpu_torch.ops.basic import quantize_cols
 from tortoise_tpu_torch.params import tree_to_torch
-from tortoise_tpu_torch.pipeline.common import sync
+from tortoise_tpu_torch.pipeline import common
+from tortoise_tpu_torch.pipeline.common import cached_cast, sync
 
 _MATMUL_WEIGHTS = ("attn_w", "proj_w", "fc_w", "fc_proj_w")
 TEXT_BUCKETS = (32, 64, 128, 192, 256, 320, 404)
@@ -83,7 +85,14 @@ def quantize_ar(params) -> dict:
 def cast_matmul_weights(params, dtype, int8: bool = False, device="cpu"):
     """Device AR tree from the host numpy tree: the big matmul weights in
     the compute dtype, or as int8 pairs with the head pack (quantized on
-    the device after an f32 upload), everything else f32."""
+    the device after an f32 upload), everything else f32. Memoized per
+    (tree, device, dtype, int8): a second call returns the same tree."""
+    return cached_cast(params, ("armw", str(dtype), int8),
+                       lambda p: _cast_matmul_weights(p, dtype, int8, device),
+                       device)
+
+
+def _cast_matmul_weights(params, dtype, int8: bool, device):
     out = tree_to_torch(params, device)
     if int8:
         return quantize_ar(out)
@@ -159,6 +168,18 @@ def trim_latents(latents: np.ndarray, padded_sequences, cfg=ARConfig()
     return [np.asarray(latents[b, :keep]) for b, keep in enumerate(keeps)]
 
 
+def sampler_overrides(temperature=None, top_k=None, top_p_drop=None,
+                      repetition_penalty=None):
+    """Per-request sampler overrides in the dict form normalize_sampler
+    takes; None fields keep the defaults, and no override at all gives
+    None (shared by cli.py and serve.py)."""
+    d = {k: v for k, v in (
+        ("temperature", temperature), ("top_k", top_k),
+        ("top_p_drop", top_p_drop),
+        ("repetition_penalty", repetition_penalty)) if v is not None}
+    return d or None
+
+
 def normalize_sampler(sampler_params) -> tuple:
     """(temperature, top_k, top_p_drop, repetition_penalty); None -> the
     reference's defaults. Accepts a 4-sequence or a dict."""
@@ -179,19 +200,27 @@ def normalize_sampler(sampler_params) -> tuple:
     return (t, k, p, r)
 
 
+def draw_uniform(generator, shape, device) -> torch.Tensor:
+    """One step's f32 uniforms in [0, 1) (every draw of the sampling loop
+    goes through here)."""
+    return torch.rand(shape, generator=generator, device=device,
+                      dtype=torch.float32)
+
+
 def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
               cache, generator, compute_dtype, sampler):
     """On-device sampling loop. Returns (tokens (B, steps) int32 on the
     host, lengths (B,)): lengths[b] counts ids appended to sequence b
     (stop included) under the reference's append-unless-finished rule;
-    the loop ends when every row samples stop in the same step."""
+    the loop ends when every row samples stop in the same step. One
+    (B, 1) uniform draw per step, the first one included, like the JAX
+    package's key chain (ar_stage.py:299-325)."""
     b = first_logits.shape[0]
     dev = first_logits.device
     stop = cfg.stop_mel_token
 
     def draw_u():
-        return torch.rand((b, 1), generator=generator, device=dev,
-                          dtype=torch.float32)
+        return draw_uniform(generator, (b, 1), dev)
 
     probs, ids = S.process_logits_topk(first_logits, first_penalty_ids,
                                        *sampler)
@@ -230,9 +259,13 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
                          substage_timings: Optional[dict] = None,
                          sampler_params=None, device="cpu") -> Tuple:
     """On-device ("jax"-plane) AR stage over the rows of ``tokens_list``
-    (shared or per-row voices). Returns (trimmed_latents, padded) or,
-    with return_device_latents, (latents (B, 500, D) on the device,
-    keep_lens, padded)."""
+    (ragged lengths share the longest row's text bucket, masked), with
+    one shared (d,) voice or per-row (B, d) voices. Returns
+    (trimmed_latents, padded) or, with return_device_latents, (latents
+    (B, 500, D) on the device, keep_lens, padded). On the bf16 + int8
+    plane each decode step is one kernel-A call when B <= 16 and top_k <=
+    128 (``ar.can_fuse_sampling``); otherwise decode_step and the plain
+    sampler."""
     sampler = normalize_sampler(sampler_params)
     tokens_list = [list(map(int, t)) for t in tokens_list]
     if not tokens_list:
@@ -248,7 +281,10 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
         text_valid[i, :len(toks)] = True
     st = substage_timings
     t_sub = time.monotonic()
-    voices = torch.as_tensor(np.asarray(voices, np.float32), device=device)
+    voices = np.asarray(voices, np.float32)
+    if voices.ndim == 1:
+        voices = np.repeat(voices[None], b, axis=0)
+    voices = torch.as_tensor(voices, device=device)
     params = cast_matmul_weights(params, compute_dtype, int8_weights, device)
     text_ids = torch.as_tensor(text_ids, device=device)
     text_valid = torch.as_tensor(text_valid, device=device)
@@ -265,8 +301,7 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     # the first step penalizes the prefill filler ids {1, start}
     first_ids = torch.ones((b, bucket + 2), dtype=torch.long, device=device)
     first_ids[:, -1] = cfg.start_mel_token
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = common.make_generator(seed, device)
     toks, lengths = _generate(params, cfg, logits, first_ids, cache, gen,
                               compute_dtype, sampler)
     if st is not None:

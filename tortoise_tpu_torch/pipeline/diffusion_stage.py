@@ -8,9 +8,12 @@ conditioned eval only; loop step i handles respaced t = S-1-i; noise is
 drawn every step even though the last step discards it; lengths round up
 to buckets with masked norms and attention.
 
-Two noise planes: ``diffusion_batch_device`` draws from a
-``torch.Generator``; ``diffusion(rng=ReferenceRng)`` consumes the mt19937
-stream in the reference's order (initial noise, then one draw a step).
+Two noise planes: ``diffusion_batch_device`` (and ``diffusion_batch``,
+its host-list form) draws from a ``torch.Generator`` through
+``draw_normal`` — the initial noise, then one draw a step, like the JAX
+package's key chain (diffusion_stage.py:181-182, 237-238);
+``diffusion(rng=ReferenceRng)`` consumes the mt19937 stream in the
+reference's order.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from tortoise_tpu_torch.models import diffusion as dmodel
 from tortoise_tpu_torch.ops.basic import quantize_cols
 from tortoise_tpu_torch.ops.relpos import relative_position_buckets
 from tortoise_tpu_torch.params import tree_to_torch
+from tortoise_tpu_torch.pipeline import common
 from tortoise_tpu_torch.pipeline import schedule as ds
-from tortoise_tpu_torch.pipeline.common import round_up, sync
+from tortoise_tpu_torch.pipeline.common import cached_cast, round_up, sync
 
 LAT_BUCKET = 32
 OUT_BUCKET = 64
@@ -66,9 +70,26 @@ def quantize_diffusion_weights(params):
 
 def _prepare_params(params, int8_weights: bool, device="cpu"):
     """Device tree; with int8_weights quantized there after an f32
-    upload."""
-    params = tree_to_torch(params, device)
-    return quantize_diffusion_weights(params) if int8_weights else params
+    upload. Memoized per (tree, device, plane)."""
+    if int8_weights:
+        return cached_cast(params, "int8", lambda p: (
+            quantize_diffusion_weights(tree_to_torch(p, device))), device)
+    return cached_cast(params, "device", lambda p: tree_to_torch(p, device),
+                       device)
+
+
+def draw_normal(generator, shape, device) -> torch.Tensor:
+    """f32 standard-normal noise (every draw of the stage goes through
+    here)."""
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=torch.float32)
+
+
+def _progress_cuts(n: int):
+    """The steps [0, ..., n] (~10 chunks) after which the progress callback
+    fires, as in the JAX package (diffusion_stage.py:99)."""
+    step = max(1, n // 10)
+    return sorted({min(n, c) for c in range(0, n + step, step)} | {n})
 
 
 def schedule_arrays(cfg: DiffusionConfig, device="cpu") -> dict:
@@ -128,7 +149,10 @@ def _buckets(length: int, cfg: DiffusionConfig, device):
 
 
 def _denoise_loop(params, cfg, sched, code_emb2, x, out_buckets, out_mask,
-                  draw_noise, compute_dtype, variance_swap, progress=None):
+                  draw_noise, compute_dtype, variance_swap, progress=None,
+                  report_at=None):
+    """The n denoising steps from x; ``progress(done / n)`` fires after
+    each step count in ``report_at`` (default: every step)."""
     b = x.shape[0]
     n = cfg.n_sample_timesteps
     for i in range(n):
@@ -142,7 +166,9 @@ def _denoise_loop(params, cfg, sched, code_emb2, x, out_buckets, out_mask,
                            t, draw_noise(), variance_swap)
         if out_mask is not None:
             x = torch.where(out_mask[:, None, :], x, 0.0)
-        if progress is not None:
+        if progress is not None and (report_at is None
+                                     or i + 1 in report_at):
+            sync(x.device)  # the callback reports finished steps
             progress((i + 1) / n)
     return x
 
@@ -155,10 +181,11 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
                            device="cpu", progress=None,
                            substage_timings: Optional[dict] = None):
     """Device latents (B, >=L, D) with per-row keep lengths -> the mel as
-    a device (B, n_mel, out_pad) tensor plus per-row lengths (numpy).
-    ``substage_timings`` receives the walls of the weight cast and of the
-    rest (conditioner plus the denoising loop), synchronising the device
-    at each boundary."""
+    a device (B, n_mel, out_pad) tensor plus per-row lengths (numpy), all
+    rows in one masked batch. ``progress(fraction)`` fires at 0 and after
+    the steps of ``_progress_cuts``. ``substage_timings`` receives the
+    walls of the weight cast and of the rest (conditioner plus the
+    denoising loop), synchronising the device at each boundary."""
     st = substage_timings
     t_sub = time.monotonic()
     params = _prepare_params(params, int8_weights, device)
@@ -185,24 +212,47 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
         torch.as_tensor(lat_lens, device=device),
         torch.as_tensor(out_lens, device=device), lat_mask, compute_dtype)
     code_emb2 = torch.cat([cond, uncond], dim=0)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = common.make_generator(seed, device)
 
     def draw_noise():
-        return torch.randn((b, cfg.n_mel, out_pad), generator=gen,
-                           device=device, dtype=torch.float32)
+        return draw_normal(gen, (b, cfg.n_mel, out_pad), device)
 
     x = draw_noise()
     if out_mask is not None:
         x = torch.where(out_mask[:, None, :], x, 0.0)
+    if progress is not None:
+        progress(0.0)
     x = _denoise_loop(params, cfg, sched, code_emb2, x,
                       _buckets(out_pad, cfg, device), out_mask, draw_noise,
-                      compute_dtype, variance_swap, progress)
+                      compute_dtype, variance_swap, progress,
+                      set(_progress_cuts(cfg.n_sample_timesteps)[1:]))
     if st is not None:
         sync(device)
         st["diffusion_loop_s"] = time.monotonic() - t_sub
         st["diffusion_steps"] = cfg.n_sample_timesteps
     return x, out_lens
+
+
+def diffusion_batch(params, latents_list,
+                    cfg: DiffusionConfig = DiffusionConfig(), seed: int = 0,
+                    variance_swap: bool = True, compute_dtype=None,
+                    int8_weights: bool = False, device="cpu", progress=None):
+    """Host list of (L_i, 1024) latents -> list of (100, T_i) host mels,
+    decoded together in one masked batch (diffusion_batch_device on the
+    rows zero-padded to the longest one's bucket)."""
+    lats = [np.asarray(l, np.float32) for l in latents_list]
+    if not lats:
+        raise ValueError("latents_list is empty")
+    lens = [l.shape[0] for l in lats]
+    lat_in = np.zeros((len(lats), round_up(max(lens), LAT_BUCKET),
+                       lats[0].shape[1]), np.float32)
+    for i, l in enumerate(lats):
+        lat_in[i, :l.shape[0]] = l
+    mel, out_lens = diffusion_batch_device(
+        params, torch.as_tensor(lat_in), lens, cfg, seed, variance_swap,
+        compute_dtype, int8_weights, device, progress)
+    mel = mel.float().cpu().numpy()
+    return [mel[i, :, :out_lens[i]] for i in range(len(lats))]
 
 
 @torch.inference_mode()
@@ -213,15 +263,14 @@ def diffusion(params, latents: np.ndarray,
               progress=None) -> np.ndarray:
     """Latents (L, 1024) -> normalized mel (100, T) on the host.
 
-    rng=None: torch.Generator noise (diffusion_batch_device at B=1);
-    rng=ReferenceRng: the reference's mt19937 noise stream."""
-    latents = np.asarray(latents, np.float32)
+    rng=None: torch.Generator noise (diffusion_batch at B=1);
+    rng=ReferenceRng: the reference's mt19937 noise stream, with
+    ``progress`` after every step."""
     if rng is None:
-        mel, lens = diffusion_batch_device(
-            params, torch.as_tensor(latents[None]), [latents.shape[0]], cfg,
-            seed, variance_swap, compute_dtype, int8_weights, device,
-            progress)
-        return mel[0, :, :lens[0]].float().cpu().numpy()
+        return diffusion_batch(params, [latents], cfg, seed, variance_swap,
+                               compute_dtype, int8_weights, device,
+                               progress)[0]
+    latents = np.asarray(latents, np.float32)
     params = _prepare_params(params, int8_weights, device)
     lat_len = latents.shape[0]
     out_len = mel_length_for_latents(lat_len)

@@ -6,6 +6,8 @@ Seeding: sampler="jax" seeds one torch.Generator per stage from ``seed``
 ReferenceRng through all stages in the reference's draw order (AR
 multinomials, diffusion initial noise, the step noises, vocoder noise),
 which is the plane held token for token against the JAX package.
+``synthesize_batch`` is the serving path: several utterances, each with
+its own voice, through one batched AR / diffusion / vocoder pass.
 """
 
 from __future__ import annotations
@@ -116,6 +118,103 @@ class SynthesisResult:
 
     def save(self, path: str) -> None:
         write_wav(path, self.audio, self.sample_rate)
+
+
+def _row_voices(voices, d: int):
+    """One (d,) latent, a (B, d) array, a path, or a list of paths/arrays
+    per row -> a (d,) or (B, d) f32 array."""
+    if isinstance(voices, (list, tuple)):
+        return np.stack([load_voice_latent(v, d) if isinstance(v, str)
+                         else np.asarray(v, np.float32) for v in voices])
+    if isinstance(voices, str):
+        return load_voice_latent(voices, d)
+    if voices is None:
+        raise ValueError("voice latents are required")
+    return np.asarray(voices, np.float32)
+
+
+def synthesize_batch(models: TortoiseModels,
+                     messages: Optional[List[str]] = None,
+                     tokens_list: Optional[List[List[int]]] = None,
+                     voices=None, seed: int = 0, compute_dtype=None,
+                     tokenizer_method: str = "greedy", progress=None,
+                     int8_weights: bool = False, stage_sync: bool = True,
+                     materialize: bool = True, sampler_params=None,
+                     device=None) -> List[SynthesisResult]:
+    """Batched serving path: one utterance per row of ``tokens_list`` (or
+    of ``messages``, tokenized), each stage one batched computation with
+    per-row masked lengths. ``voices``: one (d,) latent or path shared by
+    all rows, a (B, d) array, or a list of paths/arrays per row.
+    ``sampler_params`` (ar_stage.normalize_sampler) holds for the whole
+    batch. Latents and mel stay on the device between the stages;
+    with ``progress`` the diffusion stage runs on host lists and reports
+    its steps. ``materialize=False`` (serving) leaves each row's mel and
+    latents None. ``stage_sync`` waits for the device at each stage
+    boundary so the stage walls in ``timings`` are true; every row gets
+    its own copy of the batch's walls."""
+    device = resolve_device(device)
+    if tokens_list is None:
+        if messages is None:
+            raise ValueError("pass messages or tokens_list")
+        if models.tokenizer is None:
+            raise ValueError("no tokenizer available; pass tokens_list")
+        tokens_list = [models.tokenizer.encode_pipeline(m, tokenizer_method)
+                       for m in messages]
+    b = len(tokens_list)
+    voices = _row_voices(voices, models.ar_cfg.d_model)
+    timings = {}
+    st = timings if stage_sync else None
+    kw = dict(compute_dtype=compute_dtype, device=device)
+    t0 = time.monotonic()
+    if progress is None:
+        lat_dev, keeps, sequences = ar_stage.autoregressive_batch(
+            models.ar_params, tokens_list, voices, models.ar_cfg, seed=seed,
+            int8_weights=int8_weights, return_device_latents=True,
+            substage_timings=st, sampler_params=sampler_params, **kw)
+        timings["autoregressive_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        mel_dev, out_lens = diffusion_stage.diffusion_batch_device(
+            models.diffusion_params, lat_dev, keeps, models.diffusion_cfg,
+            seed=seed + 1, int8_weights=int8_weights, substage_timings=st,
+            **kw)
+        if stage_sync:
+            sync(device)
+        timings["diffusion_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        audios = vocoder_stage.vocoder_batch_device(
+            models.vocoder_params, mel_dev, out_lens, models.vocoder_cfg,
+            seed=seed + 2, **kw)
+        if materialize:
+            mel_h = mel_dev.float().cpu().numpy()
+            lat_h = lat_dev.float().cpu().numpy()
+            mels = [mel_h[i, :, :out_lens[i]] for i in range(b)]
+            latents = [lat_h[i, :keeps[i]] for i in range(b)]
+        else:
+            mels = latents = [None] * b
+    else:
+        latents, sequences = ar_stage.autoregressive_batch(
+            models.ar_params, tokens_list, voices, models.ar_cfg, seed=seed,
+            int8_weights=int8_weights, substage_timings=st,
+            sampler_params=sampler_params, **kw)
+        timings["autoregressive_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        mels = diffusion_stage.diffusion_batch(
+            models.diffusion_params, latents, models.diffusion_cfg,
+            seed=seed + 1, int8_weights=int8_weights, progress=progress,
+            **kw)
+        timings["diffusion_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        audios = vocoder_stage.vocoder_batch(
+            models.vocoder_params, mels, models.vocoder_cfg, seed=seed + 2,
+            **kw)
+    timings["vocoder_s"] = time.monotonic() - t0
+    return [SynthesisResult(audio=audios[i],
+                            sample_rate=models.vocoder_cfg.sample_rate,
+                            mel=mels[i], sequences=[sequences[i]],
+                            latents=[latents[i]],
+                            tokens=list(tokens_list[i]),
+                            timings=dict(timings))
+            for i in range(b)]
 
 
 def synthesize(models: TortoiseModels, message: Optional[str] = None,
