@@ -14,7 +14,8 @@ Phases (any failure exits nonzero before the result line):
    the stated tolerance (2e-2 relative for bf16 outputs, 1e-4 for E's
    f32), and the time of both (CUDA events, after warm-up); D1 also
    against kernel B on one qkv, and B and C at head width 128; the
-   serving shapes: A at B = 16, B at a stream window (8, 384) and on a
+   serving shapes: A on ragged rows at B = 4 and 16, B at a stream
+   window (8, 384) and on a
    batch's ragged CFG rows, E at a 32-frame chunk;
 4. end to end at full production width (random weights, bf16 + int8,
    stand-in tokens), five requests, each with the launch counts set to 0
@@ -138,7 +139,7 @@ def _kernel_a_weights(torch):
 def _kernel_a_inputs(torch, b, weights=None):
     """(blocks, cache_k, cache_v, bias_row, x, kwargs) for one decode step
     of b rows over a C=640-slot cache (a 32-token bucket's size_cache)
-    holding 300 - 7 * row valid slots, with the head and the default
+    holding 300 valid slots in every row, with the head and the default
     sampler."""
     blocks, head, g = weights or _kernel_a_weights(torch)
     dev = torch.device("cuda")
@@ -146,8 +147,7 @@ def _kernel_a_inputs(torch, b, weights=None):
     ck = torch.randn((L, b, C, D), generator=g, device=dev).bfloat16()
     cv = torch.randn((L, b, C, D), generator=g, device=dev).bfloat16()
     bias_row = torch.full((b, C), -1e30, device=dev)
-    for i in range(b):  # ragged rows, as in a server batch
-        bias_row[i, :300 - 7 * i] = 0.0
+    bias_row[:, :300] = 0.0
     x = torch.randn((b, D), generator=g, device=dev)
     prev = torch.randint(0, V, (b, 1), generator=g, device=dev,
                          dtype=torch.int32)
@@ -185,10 +185,42 @@ def _firm_rows(torch, K, logits, prev, u, sampler, noise, trials=16):
     return firm[:, 0]
 
 
+def _check_firm_tokens(torch, K, args, kw, got, want, label):
+    """Tokens of a ragged batch: the two paths' logits differ within
+    tolerance, and a draw near the edge of a CDF step, the top-k cut or
+    the nucleus cut flips on a ~1e-2 logit difference. So both paths draw
+    at the middle of each row's step of the plain CDF, and must pick the
+    same token on every row whose plain draw holds under Gaussian logit
+    noise of twice the paths' RMS difference, with at least max(1, b // 2)
+    such rows."""
+    V, b = 8194, args[4].shape[0]
+    prev, u = kw["prev_u"]
+    mid_u = _mid_step_u(torch, want[3], prev, u, kw["sampler"])
+    mid = dict(kw, prev_u=(prev, mid_u))
+    tok_k = K.fused_decode_trunk(*args, **mid)[4]
+    tok_p = K.fused_decode_trunk_plain(*args, **mid)[4]
+    rms = float((got[3][:, :V] - want[3][:, :V]).float().pow(2).mean()
+                .sqrt())
+    firm = _firm_rows(torch, K, want[3], prev, mid_u, kw["sampler"], 2 * rms)
+    same = (tok_k == tok_p)[:, 0]
+    print(f"  A {label} mid-step tokens kernel={tok_k[:, 0].tolist()} "
+          f"plain={tok_p[:, 0].tolist()}; {int(firm.sum())} firm rows "
+          f"(logit RMS diff {rms:.2e}), equal on {int(same.sum())} rows")
+    if int(firm.sum()) < max(1, b // 2) or not bool(same[firm].all()):
+        fail(f"kernel A tokens differ from the plain path on a firm row "
+             f"({label}): {tok_k.tolist()} vs {tok_p.tolist()}, firm "
+             f"{firm.tolist()}")
+
+
 def check_kernel_a(torch, results):
-    """Kernel A at production width, B in {1, 4, 16} (16 is the largest
-    server batch bucket), with and without the head + sampler; tokens
-    must match the plain path's."""
+    """Kernel A at production width, with and without the head + sampler.
+    B in {1, 4} with 300 valid cache slots in every row: tokens at the
+    raw uniforms must equal the plain path's. B in {4, 16} (16 is the
+    largest server batch bucket) with ragged rows (300 - 7 * row slots,
+    as in a server batch): tokens must equal the plain path's on the rows
+    whose draw is firm (``_check_firm_tokens``). On every case the
+    in-kernel sampler must equal the plain sampler on the kernel's own
+    logits at the raw uniforms."""
     from tortoise_tpu_torch.ops.cuda import decode_trunk as K
 
     V, worst, tol = 8194, 0.0, 2e-2
@@ -198,70 +230,64 @@ def check_kernel_a(torch, results):
         blocks, ck, cv, bias_row, x, full = _kernel_a_inputs(torch, b,
                                                              weights)
         prev, u = full["prev_u"]
-        for with_head in (False, True):
-            kw = full if with_head else {}
-            got = K.fused_decode_trunk(blocks, ck, cv, bias_row, x, **kw)
-            want = K.fused_decode_trunk_plain(blocks, ck, cv, bias_row, x,
-                                              **kw)
-            torch.cuda.synchronize()
-            names = ("hidden", "k_rows", "v_rows", "logits")
-            # logits: the V real columns (the padded ones sit at -1e30)
-            pairs = [(gt, wt) for gt, wt in zip(got[:4], want[:4])]
-            if with_head:
-                pairs[3] = (got[3][:, :V], want[3][:, :V])
-            for name, (gt, wt) in zip(names, pairs):
-                err, rel = rel_err(torch, gt, wt)
-                worst = max(worst, err)
-                print(f"  A b={b} head={with_head} {name}: max_abs_err="
-                      f"{err:.3e} rel={rel:.3e} (tol rel {tol})")
-                if not rel <= tol:
-                    fail(f"kernel A {name} b={b} disagrees: rel {rel}")
-            if with_head:
+        cases = []
+        if b < 16:
+            cases.append(("uniform", bias_row))
+        if b > 1:
+            ragged = torch.full_like(bias_row, -1e30)
+            for i in range(b):
+                ragged[i, :300 - 7 * i] = 0.0
+            cases.append(("ragged", ragged))
+        for layout, bias in cases:
+            label = f"b={b} {layout}"
+            args = (blocks, ck, cv, bias, x)
+            for with_head in (False, True):
+                kw = full if with_head else {}
+                got = K.fused_decode_trunk(*args, **kw)
+                want = K.fused_decode_trunk_plain(*args, **kw)
+                torch.cuda.synchronize()
+                names = ("hidden", "k_rows", "v_rows", "logits")
+                # logits: the V real columns (the padded ones sit at -1e30)
+                pairs = [(gt, wt) for gt, wt in zip(got[:4], want[:4])]
+                if with_head:
+                    pairs[3] = (got[3][:, :V], want[3][:, :V])
+                for name, (gt, wt) in zip(names, pairs):
+                    err, rel = rel_err(torch, gt, wt)
+                    worst = max(worst, err)
+                    print(f"  A {label} head={with_head} {name}: "
+                          f"max_abs_err={err:.3e} rel={rel:.3e} (tol rel "
+                          f"{tol})")
+                    if not rel <= tol:
+                        fail(f"kernel A {name} {label} disagrees: rel {rel}")
+                if not with_head:
+                    continue
                 tok_k = got[4].cpu().tolist()
                 tok_same = K.sample_plain(got[3], prev, u, kw["sampler"])
                 if tok_same.cpu().tolist() != tok_k:
                     fail(f"kernel A sampler disagrees with its plain "
-                         f"version on the same logits: {tok_k} vs "
-                         f"{tok_same.cpu().tolist()}")
-                # the two paths' logits differ within tolerance, and a
-                # draw near the edge of a CDF step, the top-k cut or the
-                # nucleus cut flips on a ~1e-2 logit difference. So the
-                # paths draw at uniforms in the middle of each row's step
-                # of the plain CDF, and must pick the same token on every
-                # row whose plain draw holds under random logit noise of
-                # twice the paths' RMS difference (at least b // 2 rows)
-                mid_u = _mid_step_u(torch, want[3], prev, u, kw["sampler"])
-                mid = dict(kw, prev_u=(prev, mid_u))
-                args = (blocks, ck, cv, bias_row, x)
-                tok_k = K.fused_decode_trunk(*args, **mid)[4]
-                tok_p = K.fused_decode_trunk_plain(*args, **mid)[4]
-                rms = float((got[3][:, :V] - want[3][:, :V]).float()
-                            .pow(2).mean().sqrt())
-                firm = _firm_rows(torch, K, want[3], prev, mid_u,
-                                  kw["sampler"], 2 * rms)
-                same = (tok_k == tok_p)[:, 0]
-                print(f"  A b={b} tokens kernel={tok_k[:, 0].tolist()} "
-                      f"plain={tok_p[:, 0].tolist()}; {int(firm.sum())} "
-                      f"firm rows (logit RMS diff {rms:.2e}), equal on "
-                      f"{int(same.sum())} rows")
-                if int(firm.sum()) < b // 2 or not bool(same[firm].all()):
-                    fail(f"kernel A tokens differ from the plain path on "
-                         f"a firm row: {tok_k.tolist()} vs "
-                         f"{tok_p.tolist()}, firm {firm.tolist()}")
-            if b == 16 and with_head:
-                args = (blocks, ck, cv, bias_row, x)
+                         f"version on the same logits ({label}): {tok_k} "
+                         f"vs {tok_same.cpu().tolist()}")
+                if layout == "uniform":
+                    tok_p = want[4].cpu().tolist()
+                    print(f"  A {label} tokens kernel={tok_k} plain={tok_p}")
+                    if tok_k != tok_p:
+                        fail(f"kernel A tokens differ from the plain path "
+                             f"({label}): {tok_k} vs {tok_p}")
+                else:
+                    _check_firm_tokens(torch, K, args, kw, got, want, label)
+            if b == 16:
                 k_ms = cuda_ms(torch, lambda: K.fused_decode_trunk(*args,
-                                                                   **kw))
+                                                                   **full))
                 p_ms = cuda_ms(torch, lambda: K.fused_decode_trunk_plain(
-                    *args, **kw), iters=3)
-                print(f"  A decode step (B=16, C=640, head+sampler): kernel "
-                      f"{k_ms:.3f} ms, plain {p_ms:.3f} ms")
-            if b == 1 and with_head:
+                    *args, **full), iters=3)
+                print(f"  A decode step (B=16, C=640, ragged, head+sampler): "
+                      f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+            if b == 1:
                 timing = (
-                    cuda_ms(torch, lambda: K.fused_decode_trunk(
-                        blocks, ck, cv, bias_row, x, **kw)),
+                    cuda_ms(torch, lambda: K.fused_decode_trunk(*args,
+                                                                **full)),
                     cuda_ms(torch, lambda: K.fused_decode_trunk_plain(
-                        blocks, ck, cv, bias_row, x, **kw), iters=3))
+                        *args, **full), iters=3))
     print(f"  A decode step (B=1, C=640, head+sampler): kernel "
           f"{timing[0]:.3f} ms, plain {timing[1]:.3f} ms")
     results["A"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])

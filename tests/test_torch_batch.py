@@ -114,9 +114,10 @@ def voices():
 @pytest.mark.parametrize("plane", ["f32", "bf16_int8"])
 def test_synthesize_batch_matches_jax(models_kw, voices, tmp_path,
                                       monkeypatch, plane, path):
-    """Three ragged rows with per-row voices (one given as a path), on the
-    device-resident handoff and on the host-list path that ``progress``
-    selects."""
+    """Three ragged rows with per-row voices (one given as a path), with
+    and without ``progress`` (the JAX package then takes its host-list
+    path; the port keeps one device-resident path and reports the same
+    fractions)."""
     voices[0].tofile(tmp_path / "v0.bin")
     row_voices = [str(tmp_path / "v0.bin"), voices[1], voices[2]]
     kw, jcd, tcd = {}, None, None
@@ -193,6 +194,23 @@ def test_diffusion_batch_progress_matches_jax(models_kw):
     assert tseen == jseen
     assert tseen[0] == 0.0 and tseen[-1] == 1.0 and len(tseen) == 13
     assert [m.shape[1] for m in mels] == [39, 60]
+
+
+def test_vocoder_batch_matches_jax(models_kw, monkeypatch):
+    """Ragged mels vocoded in one masked batch with the JAX package's
+    PRNGKey(seed) noise replayed: every row's f32 audio within 1e-3."""
+    from tortoise_tpu.pipeline import vocoder_stage as JVS
+
+    cfg = models_kw["vocoder_cfg"]
+    mels = [np.random.default_rng(i).uniform(-1, 1, (cfg.n_mel, n))
+            .astype(np.float32) for i, n in enumerate((20, 33, 7))]
+    want = JVS.vocoder_batch(models_kw["vocoder_params"], mels, cfg, seed=4)
+    replay_jax_streams(monkeypatch)
+    got = TVS.vocoder_batch(models_kw["vocoder_params"], mels, cfg, seed=4,
+                            device="cpu")
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        close(g, w, 1e-3)
 
 
 def test_second_synthesize_reuses_the_cast_trees(models_kw, monkeypatch):

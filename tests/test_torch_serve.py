@@ -195,8 +195,10 @@ def test_worker_death_fails_futures_not_hangs(models, voice, monkeypatch):
 
 
 def test_warmup_runs_every_reachable_bucket(models, voice, monkeypatch):
-    """warmup() runs one batch per reachable B bucket directly (the queue
-    and the stats untouched) and needs a default voice."""
+    """warmup() runs one single-row batch directly (the queue and the
+    stats untouched): eager PyTorch specializes on no batch size, so that
+    one batch serves every reachable B bucket. It needs a default
+    voice."""
     seen = []
     real = serve.synthesize_batch
 
@@ -208,8 +210,8 @@ def test_warmup_runs_every_reachable_bucket(models, voice, monkeypatch):
     server = _server(models, max_batch=3, max_wait_ms=10,
                      default_voice=voice)
     with server:
-        server.warmup(text_len=4)
-    assert seen == [1, 2, 4]  # 3 rows pad to 4; 8 and 16 are unreachable
+        server.warmup()
+    assert seen == [1]
     st = server.stats()
     assert st["rows"] == 0 and st["queued"] == 0
     no_voice = _server(models, max_batch=2)
@@ -326,7 +328,7 @@ def test_stop_without_drain_fails_queued_requests(models, voice,
     stopper.join(timeout=WAIT)
     assert not stopper.is_alive()
     assert len(running.result(timeout=WAIT).audio) > 0
-    with pytest.raises(RuntimeError, match="stopped"):
+    with pytest.raises(serve.ServerStopped, match="stopped"):
         queued.result(timeout=WAIT)
 
 
@@ -520,6 +522,31 @@ def test_http_batch_failure_is_500(models, voice, monkeypatch):
                            {"tokens": _tokens(rng, 4)})
         assert resp.status == 500
         assert "injected" in json.loads(body)["error"]
+
+
+def test_http_stream_failure_is_500_and_stopped_server_is_503(
+        models, voice, monkeypatch):
+    """Only a stopped server is a retryable 503. A RuntimeError raised by
+    the synthesis itself (as CUDA faults and kernel build failures are)
+    in a stream's first window is a 500."""
+    from tortoise_tpu_torch.pipeline import streaming
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("injected first-window failure")
+        yield  # a generator, like stream_synthesize
+
+    monkeypatch.setattr(streaming, "stream_synthesize", broken)
+    rng = np.random.default_rng(6)
+    with _Http(_server(models, default_voice=voice)) as h:
+        conn = h.conn()
+        resp, body = _post(conn, "/stream", {"tokens": _tokens(rng, 4)})
+        assert resp.status == 500
+        assert "injected" in json.loads(body)["error"]
+        h.server.stop()
+        for path in ("/synthesize", "/stream"):
+            resp, body = _post(conn, path, {"tokens": _tokens(rng, 4)})
+            assert resp.status == 503, path
+            assert "not started" in json.loads(body)["error"]
 
 
 def test_http_stream_endpoint(models, voice):

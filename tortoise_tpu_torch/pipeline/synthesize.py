@@ -147,8 +147,8 @@ def synthesize_batch(models: TortoiseModels,
     all rows, a (B, d) array, or a list of paths/arrays per row.
     ``sampler_params`` (ar_stage.normalize_sampler) holds for the whole
     batch. Latents and mel stay on the device between the stages;
-    with ``progress`` the diffusion stage runs on host lists and reports
-    its steps. ``materialize=False`` (serving) leaves each row's mel and
+    ``progress(fraction)`` reports the diffusion steps at the JAX
+    package's cuts. ``materialize=False`` (serving) leaves each row's mel and
     latents None. ``stage_sync`` waits for the device at each stage
     boundary so the stage walls in ``timings`` are true; every row gets
     its own copy of the batch's walls."""
@@ -166,47 +166,30 @@ def synthesize_batch(models: TortoiseModels,
     st = timings if stage_sync else None
     kw = dict(compute_dtype=compute_dtype, device=device)
     t0 = time.monotonic()
-    if progress is None:
-        lat_dev, keeps, sequences = ar_stage.autoregressive_batch(
-            models.ar_params, tokens_list, voices, models.ar_cfg, seed=seed,
-            int8_weights=int8_weights, return_device_latents=True,
-            substage_timings=st, sampler_params=sampler_params, **kw)
-        timings["autoregressive_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        mel_dev, out_lens = diffusion_stage.diffusion_batch_device(
-            models.diffusion_params, lat_dev, keeps, models.diffusion_cfg,
-            seed=seed + 1, int8_weights=int8_weights, substage_timings=st,
-            **kw)
-        if stage_sync:
-            sync(device)
-        timings["diffusion_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        audios = vocoder_stage.vocoder_batch_device(
-            models.vocoder_params, mel_dev, out_lens, models.vocoder_cfg,
-            seed=seed + 2, **kw)
-        if materialize:
-            mel_h = mel_dev.float().cpu().numpy()
-            lat_h = lat_dev.float().cpu().numpy()
-            mels = [mel_h[i, :, :out_lens[i]] for i in range(b)]
-            latents = [lat_h[i, :keeps[i]] for i in range(b)]
-        else:
-            mels = latents = [None] * b
+    lat_dev, keeps, sequences = ar_stage.autoregressive_batch(
+        models.ar_params, tokens_list, voices, models.ar_cfg, seed=seed,
+        int8_weights=int8_weights, return_device_latents=True,
+        substage_timings=st, sampler_params=sampler_params, **kw)
+    timings["autoregressive_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    mel_dev, out_lens = diffusion_stage.diffusion_batch_device(
+        models.diffusion_params, lat_dev, keeps, models.diffusion_cfg,
+        seed=seed + 1, int8_weights=int8_weights, progress=progress,
+        substage_timings=st, **kw)
+    if stage_sync:
+        sync(device)
+    timings["diffusion_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    audios = vocoder_stage.vocoder_batch_device(
+        models.vocoder_params, mel_dev, out_lens, models.vocoder_cfg,
+        seed=seed + 2, **kw)
+    if materialize:
+        mel_h = mel_dev.float().cpu().numpy()
+        lat_h = lat_dev.float().cpu().numpy()
+        mels = [mel_h[i, :, :out_lens[i]] for i in range(b)]
+        latents = [lat_h[i, :keeps[i]] for i in range(b)]
     else:
-        latents, sequences = ar_stage.autoregressive_batch(
-            models.ar_params, tokens_list, voices, models.ar_cfg, seed=seed,
-            int8_weights=int8_weights, substage_timings=st,
-            sampler_params=sampler_params, **kw)
-        timings["autoregressive_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        mels = diffusion_stage.diffusion_batch(
-            models.diffusion_params, latents, models.diffusion_cfg,
-            seed=seed + 1, int8_weights=int8_weights, progress=progress,
-            **kw)
-        timings["diffusion_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        audios = vocoder_stage.vocoder_batch(
-            models.vocoder_params, mels, models.vocoder_cfg, seed=seed + 2,
-            **kw)
+        mels = latents = [None] * b
     timings["vocoder_s"] = time.monotonic() - t0
     return [SynthesisResult(audio=audios[i],
                             sample_rate=models.vocoder_cfg.sample_rate,

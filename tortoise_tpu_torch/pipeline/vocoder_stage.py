@@ -108,13 +108,13 @@ def vocoder(params, mel: np.ndarray, cfg: VocoderConfig = VocoderConfig(),
             seed: int = 0, rng=None, compute_dtype=None,
             device="cpu") -> np.ndarray:
     """Normalized mel (n_mel, M) -> float32 audio (audio_length(M),).
-    rng=None: torch.Generator noise; rng=ReferenceRng: the reference's
-    mt19937 noise stream (drawn before the model pass)."""
+    rng=None: torch.Generator noise (vocoder_batch at B=1);
+    rng=ReferenceRng: the reference's mt19937 noise stream (drawn before
+    the model pass)."""
     mel = np.asarray(mel, np.float32)
     if rng is None:
-        return vocoder_batch_device(params, torch.as_tensor(mel[None]),
-                                    [mel.shape[1]], cfg, seed,
-                                    compute_dtype, device)[0]
+        return vocoder_batch(params, [mel], cfg, seed, compute_dtype,
+                             device)[0]
     params = device_params(params, device)
     n_mel, m = mel.shape
     total = m + cfg.mel_pad_frames

@@ -4,8 +4,8 @@
 - ``SynthesisServer`` owns a request queue and one worker thread. The
   worker takes the first waiting request, then holds the batch open for
   up to ``max_wait_ms`` to admit more, up to ``max_batch`` rows.
-- Batch sizes round UP to a bucket (1, 2, 4, 8, 16) by repeating the last
-  row; pad rows are dropped before the futures resolve
+- Batch sizes round UP to a bucket of ``B_BUCKETS`` (1, 2, 4, 8, 16) by
+  repeating the last row; pad rows are dropped before the futures resolve
   (``stats()["padded_rows"]`` counts them). Up to 16 rows the AR decode
   runs kernel A on the bf16 + int8 plane (``ar.FUSED_MAX_BATCH``).
 - Requests with different sampler settings never share a batch: the
@@ -45,8 +45,14 @@ from tortoise_tpu_torch.pipeline.synthesize import (
     synthesize_batch,
 )
 
-DEFAULT_B_BUCKETS = (1, 2, 4, 8, FUSED_MAX_BATCH)
+B_BUCKETS = (1, 2, 4, 8, FUSED_MAX_BATCH)
 MAX_BODY = 16 << 20  # bytes of JSON a request may send
+
+
+class ServerStopped(RuntimeError):
+    """The server is not started, is stopping or has stopped: the request
+    never ran and may be retried (HTTP 503). Every other failure is the
+    synthesis's own (HTTP 500)."""
 
 
 def _check_seed(seed) -> int:
@@ -99,21 +105,16 @@ class SynthesisServer:
 
     def __init__(self, models: TortoiseModels, compute_dtype=None,
                  int8_weights: bool = False, max_batch: int = 8,
-                 max_wait_ms: float = 50.0,
-                 batch_buckets: Sequence[int] = DEFAULT_B_BUCKETS,
-                 default_voice=None, voice_dir: Optional[str] = None,
-                 device=None):
-        if max_batch < 1:
-            raise ValueError("max_batch must be >= 1")
+                 max_wait_ms: float = 50.0, default_voice=None,
+                 voice_dir: Optional[str] = None, device=None):
+        if not 1 <= max_batch <= B_BUCKETS[-1]:
+            raise ValueError(f"max_batch must be in [1, {B_BUCKETS[-1]}]")
         self.models = models
         self.voice_dir = voice_dir
         self.compute_dtype = compute_dtype
         self.int8_weights = int8_weights
         self.max_batch = max_batch
         self.max_wait_ms = max_wait_ms
-        self.batch_buckets = tuple(sorted(set(batch_buckets)))
-        if self.batch_buckets[-1] < max_batch:
-            raise ValueError("largest batch bucket is below max_batch")
         self.device = resolve_device(device)
         self.default_voice = (self._load_voice(default_voice)
                               if default_voice is not None else None)
@@ -145,7 +146,7 @@ class SynthesisServer:
 
     def stop(self, drain: bool = True) -> None:
         """Stop the worker. With drain=True queued requests are served
-        first; otherwise they fail with RuntimeError. Safe to call from
+        first; otherwise they fail with ServerStopped. Safe to call from
         several threads and more than once."""
         with self._stop_lock:
             worker = self._worker
@@ -165,7 +166,7 @@ class SynthesisServer:
                     req = self._queue.get_nowait()
                 except queue.Empty:
                     break
-                _fail_future(req.future, RuntimeError("server stopped"))
+                _fail_future(req.future, ServerStopped("server stopped"))
                 self._queue.task_done()
 
     def __enter__(self) -> "SynthesisServer":
@@ -189,14 +190,14 @@ class SynthesisServer:
         here, so a bad request fails its own caller and never the batch it
         would have joined."""
         if self._worker is None:
-            raise RuntimeError("server not started")
+            raise ServerStopped("server not started")
         tokens, voice_arr, sampler = self._normalize_request(
             message, tokens, voice, temperature, top_k, top_p_drop,
             repetition_penalty)
         req = _Request(tokens, voice_arr, _check_seed(seed), sampler)
         with self._lock:
             if self._closed or self._worker is None:
-                raise RuntimeError("server not started")
+                raise ServerStopped("server not started")
             self._queue.put(req)
         return req.future
 
@@ -214,10 +215,10 @@ class SynthesisServer:
         included, is checked here before any device work. The device lock
         is held only while a chunk is computed, so a slow consumer cannot
         starve the batches. A stream in flight when the server stops
-        raises RuntimeError at its next chunk."""
+        raises ServerStopped at its next chunk."""
         with self._lock:
             if self._closed or self._worker is None:
-                raise RuntimeError("server not started")
+                raise ServerStopped("server not started")
         from tortoise_tpu_torch.pipeline.streaming import stream_synthesize
 
         tokens, voice_arr, sampler = self._normalize_request(
@@ -242,7 +243,7 @@ class SynthesisServer:
                 with self._device_lock:
                     with self._lock:
                         if self._closed:
-                            raise RuntimeError("server stopped")
+                            raise ServerStopped("server stopped")
                     try:
                         chunk = next(it)
                     except StopIteration:
@@ -299,32 +300,22 @@ class SynthesisServer:
         s["queued"] = self._queue.qsize()
         return s
 
-    def warmup(self, text_len: int = 24,
-               buckets: Optional[Sequence[int]] = None,
-               text_lens: Optional[Sequence[int]] = None) -> None:
-        """One dummy batch per reachable B bucket (every bucket a real
-        batch can pad to), for each length in ``text_lens`` (default
-        ``text_len``), run directly under the device lock: the casts are
-        cached and the first calls' one-time costs (kernel build, cuBLAS
-        and allocator warm-up) are paid before traffic arrives. Needs a
-        default voice."""
+    def warmup(self) -> None:
+        """One dummy single-row batch, run directly under the device lock:
+        it caches the weight casts and pays the first calls' one-time
+        costs (kernel build, cuBLAS and allocator warm-up) before traffic
+        arrives. Eager PyTorch specializes on no batch or text length, so
+        one batch covers every bucket. Needs a default voice."""
         if self.default_voice is None:
             raise ValueError("warmup needs a default_voice")
-        cap = self._bucket(self.max_batch)
-        todo = self.batch_buckets if buckets is None else buckets
-        for n in (text_lens if text_lens is not None else [text_len]):
+        with self._device_lock:
             # ids 1 and 0 are in every vocab, the tiny test configs' too
-            tokens = [1] * (int(n) + 1) + [0]
-            for b in todo:
-                if b > cap:
-                    continue
-                with self._device_lock:
-                    synthesize_batch(
-                        self.models, tokens_list=[list(tokens)] * b,
-                        voices=[self.default_voice] * b, seed=0,
-                        compute_dtype=self.compute_dtype,
-                        int8_weights=self.int8_weights, materialize=False,
-                        device=self.device)
+            synthesize_batch(
+                self.models, tokens_list=[[1] * 7 + [0]],
+                voices=[self.default_voice], seed=0,
+                compute_dtype=self.compute_dtype,
+                int8_weights=self.int8_weights, materialize=False,
+                device=self.device)
 
     # -- worker ------------------------------------------------------------
 
@@ -342,11 +333,9 @@ class SynthesisServer:
             return load_voice_latent(path, self.models.ar_cfg.d_model)
         return np.asarray(voice, np.float32)
 
-    def _bucket(self, n: int) -> int:
-        for b in self.batch_buckets:
-            if n <= b:
-                return b
-        return self.batch_buckets[-1]
+    @staticmethod
+    def _bucket(n: int) -> int:
+        return next((b for b in B_BUCKETS if n <= b), B_BUCKETS[-1])
 
     def _collect(self) -> List[_Request]:
         """Block for the first request, then hold the batch open for up to
@@ -518,7 +507,7 @@ def make_http_server(server: SynthesisServer, host: str = "127.0.0.1",
                                            "first_window_frames",
                                            "vocoder_margin") if k in req}
                 chunks = server.stream(**self._request_kwargs(req), **kw)
-            except RuntimeError as e:  # server stopping: retryable
+            except ServerStopped as e:  # retryable
                 return self._json(503, {"error": str(e)})
             except Exception as e:
                 return self._json(400, {"error": str(e)})
@@ -526,7 +515,7 @@ def make_http_server(server: SynthesisServer, host: str = "127.0.0.1",
             # out: once it has, a failure can only truncate the body
             try:
                 first = next(chunks, None)
-            except RuntimeError as e:
+            except ServerStopped as e:
                 return self._json(503, {"error": str(e)})
             except Exception as e:
                 return self._json(500, {"error": str(e)})
@@ -580,13 +569,15 @@ def make_http_server(server: SynthesisServer, host: str = "127.0.0.1",
                 return self._do_stream(req)
             try:
                 fut = server.submit(**self._request_kwargs(req))
-            except RuntimeError as e:  # server stopping: retryable
+            except ServerStopped as e:  # retryable
                 return self._json(503, {"error": str(e)})
             except Exception as e:  # this request's input was bad
                 return self._json(400, {"error": str(e)})
             try:
                 result = fut.result()
-            except Exception as e:  # synthesis-side failure: retryable
+            except ServerStopped as e:  # stopped before its batch ran
+                return self._json(503, {"error": str(e)})
+            except Exception as e:  # the synthesis's own failure
                 return self._json(500, {"error": str(e)})
             body = wav_bytes(result.audio, result.sample_rate)
             self.send_response(200)
@@ -620,7 +611,7 @@ def build_parser():
     p.add_argument("--no-int8-weights", dest="int8_weights",
                    action="store_false")
     p.add_argument("--warmup", action="store_true",
-                   help="run one batch per batch bucket before serving")
+                   help="run one small batch before serving")
     p.add_argument("--random-weights", action="store_true",
                    help="synthetic weights and a random default voice")
     p.add_argument("--tiny", action="store_true",
@@ -662,7 +653,7 @@ def main(argv=None) -> int:
     httpd = None
     try:
         if args.warmup:
-            print("warming up (one batch per batch bucket)...", flush=True)
+            print("warming up (one small batch)...", flush=True)
             server.warmup()
         httpd = make_http_server(server, args.host, args.port)
         print(f"serving on http://{args.host}:{httpd.server_address[1]} "
