@@ -101,6 +101,71 @@ def rel_err(torch, got, want) -> tuple:
     return err, err / max(float(want.abs().max()), 1e-30)
 
 
+# published peaks of one H100 SXM (NVIDIA's data sheet; dense rates) and
+# the MUFU's exp rate: 132 SMs x 16 exp2 a clock x 1.98 GHz boost clock
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+MUFU_EXPS = 132 * 16 * 1.98e9
+
+
+def nbytes(*xs) -> int:
+    """Bytes of every tensor in xs (nested tuples, lists and dicts)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif hasattr(x, "element_size"):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def bound(n_bytes, flops=0.0, flop_rate=BF16_FLOPS, exps=0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations (tensor-core or f32 FLOPs, exps)
+    over their peak rate."""
+    parts = {"bytes": n_bytes / HBM_BYTES_PER_S,
+             "flops": flops / flop_rate, "exps": exps / MUFU_EXPS}
+    by = max(parts, key=parts.get)
+    print(f"    bound: {n_bytes / 1e6:.1f} MB -> {parts['bytes'] * 1e3:.4f} "
+          f"ms; {flops / 1e9:.2f} GFLOP -> {parts['flops'] * 1e3:.4f} ms; "
+          f"{exps / 1e6:.1f} M exps -> {parts['exps'] * 1e3:.4f} ms")
+    return dict(bound_ms=parts[by] * 1e3,
+                bound_by="bytes" if by == "bytes" else "operations")
+
+
+def sdpa_ms(torch, q, k, v, add, label) -> float:
+    """The one PyTorch call that computes an attention kernel's function:
+    scaled_dot_product_attention on the same (B, H, T, D) views with the
+    bias, key mask and causal mask pre-built as one float attn_mask
+    outside the timed region. Times it as the kernels are timed and
+    prints the backend it ran (the kernels a profiled call launched)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mask = add.to(q.dtype)
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+    ms = cuda_ms(torch, call)
+    print(f"  {label} SDPA (float attn_mask {tuple(mask.shape)}): {ms:.3f} "
+          f"ms; kernels {[n[:70] for n in names]}")
+    del mask
+    return ms
+
+
 def _kernel_a_weights(torch):
     """Random production-width kernel-A weights: 30 layers, D=1024, H=16,
     F=4096, Vp=8320 (8194 real logits)."""
@@ -170,6 +235,22 @@ def _mid_step_u(torch, logits, prev, u, sampler):
     lo = torch.where(pos > 0, torch.gather(cum, -1, (pos - 1).clamp(min=0)),
                      0.0)
     return ((lo + hi) / 2).float()
+
+
+def _cdf_gaps(torch, logits, prev, u, sampler) -> list:
+    """Per row, how far ``u`` lies from the nearest edge of the step of
+    the sampler's CDF it falls on: a token check at ``u`` holds under
+    logit differences that move the CDF by less than this."""
+    from tortoise_tpu_torch.ops.sampling import process_logits_topk
+
+    probs, _ = process_logits_topk(logits.float(), prev, *sampler)
+    cum = torch.cumsum(probs, dim=-1)
+    pos = torch.clamp((cum < u).sum(dim=-1, keepdim=True),
+                      max=probs.shape[-1] - 1)
+    hi = torch.gather(cum, -1, pos)
+    lo = torch.where(pos > 0, torch.gather(cum, -1, (pos - 1).clamp(min=0)),
+                     0.0)
+    return torch.minimum(u - lo, hi - u).flatten().tolist()
 
 
 def _firm_rows(torch, K, logits, prev, u, sampler, noise, trials=16):
@@ -269,7 +350,10 @@ def check_kernel_a(torch, results):
                          f"vs {tok_same.cpu().tolist()}")
                 if layout == "uniform":
                     tok_p = want[4].cpu().tolist()
-                    print(f"  A {label} tokens kernel={tok_k} plain={tok_p}")
+                    gaps = _cdf_gaps(torch, want[3], prev, u, kw["sampler"])
+                    print(f"  A {label} tokens kernel={tok_k} plain={tok_p}; "
+                          f"u's distance to the plain CDF's nearest step "
+                          f"edge per row {[f'{g:.2e}' for g in gaps]}")
                     if tok_k != tok_p:
                         fail(f"kernel A tokens differ from the plain path "
                              f"({label}): {tok_k} vs {tok_p}")
@@ -288,9 +372,80 @@ def check_kernel_a(torch, results):
                                                                 **full)),
                     cuda_ms(torch, lambda: K.fused_decode_trunk_plain(
                         *args, **full), iters=3))
+                per_step = device_launches(
+                    torch, lambda: K.fused_decode_trunk(*args, **full), 3,
+                    "decode")
+                # bytes: every weight, the head, the whole cache, the
+                # inputs and outputs once; the FLOPs are ~2 per weight
+                # byte, far under the byte time
+                out = K.fused_decode_trunk(*args, **full)
+                a_bound = bound(nbytes(args, full, out),
+                                flops=2.0 * nbytes(blocks, full["head"]))
     print(f"  A decode step (B=1, C=640, head+sampler): kernel "
-          f"{timing[0]:.3f} ms, plain {timing[1]:.3f} ms")
-    results["A"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+          f"{timing[0]:.3f} ms, plain {timing[1]:.3f} ms; {per_step:g} "
+          f"kernel launches per decode step")
+    results["A"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1],
+                        library_ms=None, **a_bound)
+
+
+def device_launches(torch, fn, calls, match) -> float:
+    """Kernels whose name holds ``match`` that the device ran per call of
+    ``fn`` (torch.profiler over ``calls`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key)
+    return n / calls
+
+
+def trace_kernel_a(torch) -> None:
+    """Kernel A's own timeline (its tt_decode_set_trace hook, the global
+    timer at every grid barrier) at B = 1 and 16: per layer phase, the
+    mean time from block 0 leaving the barrier before it to the last
+    block arriving at the barrier after it (work), and from there to
+    block 0 leaving that barrier (barrier)."""
+    from tortoise_tpu_torch.ops.cuda import build
+    from tortoise_tpu_torch.ops.cuda import decode_trunk as K
+
+    lib = build.library()
+    weights = _kernel_a_weights(torch)
+    names = ("qkv", "attention", "proj+residual", "LN2", "fc+GELU",
+             "fc_proj+residual", "LN1")
+    for b in (1, 16):
+        blocks, ck, cv, bias_row, x, kw = _kernel_a_inputs(torch, b, weights)
+        buf = torch.zeros(4096, dtype=torch.int64, device="cuda")
+        lib.tt_decode_set_trace(buf.data_ptr())
+        try:
+            K.fused_decode_trunk(blocks, ck, cv, bias_row, x, **kw)
+            torch.cuda.synchronize()
+        finally:
+            lib.tt_decode_set_trace(None)
+        t = buf.cpu().tolist()
+        exits = [t[0]] + [v for v in t[1:2048] if v]
+        ends = t[2048:2048 + len(exits) - 1]
+        work = [(ends[k] - exits[k]) / 1e3 for k in range(len(ends))]
+        wait = [(exits[k + 1] - ends[k]) / 1e3 for k in range(len(ends))]
+        per = len(names)
+        n_layer = (len(ends) - 3) // per
+        print(f"  A trace B={b}: {len(ends)} barriers over "
+              f"{(exits[-1] - exits[0]) / 1e3:.1f} us, barrier mean "
+              f"{sum(wait) / len(wait):.2f} us; LN1 of layer 0 "
+              f"{work[0]:.2f} us; head {work[-2]:.2f} us, sampler "
+              f"{work[-1]:.2f} us")
+        for j, name in enumerate(names):
+            w = [work[1 + per * i + j] for i in range(n_layer)]
+            g = [wait[1 + per * i + j] for i in range(n_layer)]
+            print(f"    {name:13s} work {sum(w) / n_layer:6.2f} us, barrier "
+                  f"{sum(g) / n_layer:5.2f} us (mean of {n_layer} layers)")
+        del blocks, ck, cv, bias_row, x, kw, buf
 
 
 def profile_phase(torch) -> None:
@@ -338,6 +493,7 @@ def profile_phase(torch) -> None:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     report(prof, "decode_step", 5, wall)
+    trace_kernel_a(torch)
 
     models = TortoiseModels.random(0)
     cfg = dataclasses.replace(models.diffusion_cfg, use_flash=True,
@@ -397,9 +553,17 @@ def check_kernel_b(torch, results):
                     qkv, H, valid, bias_vec=bias_vec)),
                 cuda_ms(torch, lambda: K.flash_attention_packed_plain(
                     qkv, H, valid, bias_vec), iters=3))
+            q, k, v = _views(qkv, H, 64)
+            lib_ms = sdpa_ms(torch, q, k, v,
+                             K._toeplitz_full(bias_vec, t, t)[None],
+                             "B (2, 2176)")
+            b_bound = bound(nbytes(qkv, bias_vec, got),
+                            flops=4.0 * b * H * t * t * 64,
+                            exps=float(b * H * t * t))
     print(f"  B (2, 2176) x 16 heads: kernel {timing[0]:.3f} ms, plain "
-          f"{timing[1]:.3f} ms")
-    results["B"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+          f"{timing[1]:.3f} ms, SDPA {lib_ms:.3f} ms")
+    results["B"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1],
+                        library_ms=lib_ms, **b_bound)
 
 
 def check_kernel_c(torch, results):
@@ -425,9 +589,17 @@ def check_kernel_c(torch, results):
     ms = cuda_ms(torch, lambda: K.flash_attention_causal_qkv(qkv, H, valid))
     plain_ms = cuda_ms(torch, lambda: K.flash_attention_causal_qkv_plain(
         qkv, H, valid), iters=3)
+    q, k, v = K._split_part_major(qkv, H)
+    add = K._causal_add(s, s, dev)[None, None] + \
+        K._additive_mask(valid)[:, None, None, :]
+    lib_ms = sdpa_ms(torch, q, k, v, add, "C (8, 535)")
+    pairs = b * H * s * (s + 1) / 2  # (query, key) pairs under the diagonal
+    c_bound = bound(nbytes(qkv, valid, got), flops=4.0 * 64 * pairs,
+                    exps=pairs)
     print(f"  C (8, 535) x 16 heads: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms")
-    results["C"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms")
+    results["C"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, **c_bound)
 
 
 def _check(torch, name, got, want, tol, worst):
@@ -479,6 +651,13 @@ def check_kernel_d1(torch, results):
                         q, k, v, None, valid, **kw)),
                     cuda_ms(torch, lambda: K.flash_attention_plain(
                         q, k, v, None, valid, **kw), iters=3))
+                vec = K.relpos_bias_vector(kw["bias_table"], t)
+                lib_ms = sdpa_ms(torch, q, k, v,
+                                 K._toeplitz_full(vec, t, t)[None],
+                                 "D1 (2, 32, 2176, 32)")
+                d1_bound = bound(nbytes(qkv, vec, got),
+                                 flops=4.0 * 2 * h * t * t * d,
+                                 exps=float(2 * h * t * t))
         if h == 16:
             via_b = K.flash_attention_packed(qkv, h,
                                              bias_table=kw["bias_table"])
@@ -491,8 +670,9 @@ def check_kernel_d1(torch, results):
             print(f"  (2, 2176) x 16 heads of 64: kernel B {ms_b:.3f} ms, "
                   f"kernel D1 {ms_d:.3f} ms")
     print(f"  D1 (2, 2176) x 32 heads of 32: kernel {timing[0]:.3f} ms, "
-          f"plain {timing[1]:.3f} ms")
-    results["D1"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1])
+          f"plain {timing[1]:.3f} ms, SDPA {lib_ms:.3f} ms")
+    results["D1"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1],
+                         library_ms=lib_ms, **d1_bound)
 
 
 def check_kernel_d2(torch, results):
@@ -522,6 +702,12 @@ def check_kernel_d2(torch, results):
                                                   causal=True))
     plain_ms = cuda_ms(torch, lambda: K.flash_attention_plain(
         q, k, v, None, valid, causal=True), iters=3)
+    add = K._causal_add(535, 535, dev)[None, None] + \
+        K._additive_mask(valid)[:, None, None, :]
+    lib_ms = sdpa_ms(torch, q, k, v, add, "D2 causal (8, 16, 535, 64)")
+    pairs = 8 * 16 * 535 * 536 / 2
+    d2_bound = bound(nbytes(q, k, v, valid, got), flops=4.0 * 64 * pairs,
+                     exps=pairs)
 
     q, k, v = qkv_of(2, 16, 1000)
     valid = torch.arange(1000, device=dev)[None, :] < torch.tensor(
@@ -537,9 +723,10 @@ def check_kernel_d2(torch, results):
     ms_b = cuda_ms(torch, lambda: K.flash_attention(q, k, v, None, valid,
                                                     **kw))
     print(f"  D2 causal (8, 16, 535, 64): kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; bucket bias (2, 16, 1000, 64): kernel "
-          f"{ms_b:.3f} ms")
-    results["D2"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+          f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms; bucket bias (2, 16, "
+          f"1000, 64): kernel {ms_b:.3f} ms")
+    results["D2"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **d2_bound)
 
 
 def check_wide_heads(torch):
@@ -580,6 +767,7 @@ def check_kernel_e(torch, results):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     L, worst, tol, ms, plain_ms = 2208, 0.0, 1e-4, 0.0, 0.0
+    bound_ms, bound_by = 0.0, {}
     for hop in (8, 64, 256):
         t = L * hop
         x = torch.randn((1, 32, t), generator=g, device=dev)
@@ -597,6 +785,13 @@ def check_kernel_e(torch, results):
         p_ms = cuda_ms(torch, lambda: K.lvc_gated_residual_plain(*args))
         print(f"  E hop {hop}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
         ms, plain_ms = ms + k_ms, plain_ms + p_ms
+        # f32 FMAs outside the tensor cores: 32 in x 3 taps x 64 out per
+        # sample; bytes: x, this block's kernels, bias, residual, output
+        e_bound = bound(nbytes(args[:4], got), flops=2.0 * 32 * 3 * 64 * t,
+                        flop_rate=F32_FLOPS)
+        bound_ms += e_bound["bound_ms"]
+        bound_by[e_bound["bound_by"]] = bound_by.get(e_bound["bound_by"],
+                                                     0.0) + e_bound["bound_ms"]
         del x, kern, bias, res, args, got, want
     for hop in (8, 64, 256):
         L = 32
@@ -608,8 +803,10 @@ def check_kernel_e(torch, results):
                        K.lvc_gated_residual(*args),
                        K.lvc_gated_residual_plain(*args), tol, worst)
     print(f"  E one conv block per stage: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms")
-    results["E"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    results["E"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                        library_ms=None, bound_ms=bound_ms,
+                        bound_by=max(bound_by, key=bound_by.get))
 
 
 def run_request(torch, batch_size: int, out_dir: str, smi: str):
@@ -1165,8 +1362,12 @@ def main(argv=None) -> int:
         for k, (name, _, src, rep) in kernels.items()]}
     print(json.dumps(line))
     print(smi)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    jax_pkg = "tortoise_tpu"  # the JAX package (the port is its sibling)
+    jaxy = sorted(k for k in sys.modules
+                  if k in ("jax", jax_pkg)
+                  or k.startswith(("jax.", "jaxlib", jax_pkg + ".")))
+    if jaxy:
+        fail(f"JAX or the JAX package was imported: {jaxy[:8]}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

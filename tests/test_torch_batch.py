@@ -190,7 +190,7 @@ def test_diffusion_batch_progress_matches_jax(models_kw):
     JDS.diffusion_batch(models_kw["diffusion_params"], lats, cfg, seed=1,
                         progress=jseen.append)
     mels = TDS.diffusion_batch(models_kw["diffusion_params"], lats, cfg,
-                               seed=1, progress=tseen.append)
+                               seed=1, progress=tseen.append, device="cpu")
     assert tseen == jseen
     assert tseen[0] == 0.0 and tseen[-1] == 1.0 and len(tseen) == 13
     assert [m.shape[1] for m in mels] == [39, 60]
@@ -300,7 +300,8 @@ def test_batches_up_to_16_rows_take_kernel_a(b, monkeypatch):
                         spy("fused", TAR.decode_sample_step))
     monkeypatch.setattr(TAR, "decode_step", spy("plain", TAR.decode_step))
     voices = rng.normal(0, 0.5, (b, 64)).astype(np.float32)
-    kw = dict(cfg=cfg, compute_dtype=torch.bfloat16, int8_weights=True)
+    kw = dict(cfg=cfg, compute_dtype=torch.bfloat16, int8_weights=True,
+              device="cpu")
     lats, padded = TS.autoregressive_batch(params, rows, voices, **kw)
     assert len(lats) == len(padded) == b
     assert seen["fused"] > 0 and seen["plain"] == 0

@@ -112,8 +112,11 @@ def test_causal_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sample", [True, False])
 @pytest.mark.parametrize("b", [1, 3, 16])
-def test_decode_kernel_matches_plain_on_card(cuda_device, b):
+def test_decode_kernel_matches_plain_on_card(cuda_device, b, sample):
+    """Kernel A against its plain twin, with the head and with or without
+    the in-kernel sampler."""
     cfg = dataclasses.replace(tiny_ar_config(), d_model=128, n_head=2,
                               d_mlp=256, n_mel_vocab=300)
     params = quantize_ar(tree_to_torch(random_ar_params(cfg, seed=4),
@@ -121,15 +124,18 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, b):
     ck, cv, bias, x, prev, u = (torch.tensor(a).to(cuda_device)
                                 for a in _decode_inputs(cfg, b, 20 + b))
     ck, cv = ck.bfloat16(), cv.bfloat16()
-    kw = dict(head=params["head_pack"], prev_u=(prev, u),
-              sampler=(0.8, 50, 0.2, 2.0), n_head=cfg.n_head)
+    kw = dict(head=params["head_pack"], n_head=cfg.n_head)
+    if sample:
+        kw.update(prev_u=(prev, u), sampler=(0.8, 50, 0.2, 2.0))
     got = TA.fused_decode_trunk(params["blocks"], ck, cv, bias, x, **kw)
     want = TA.fused_decode_trunk_plain(params["blocks"], ck, cv, bias, x,
                                        **kw)
+    assert len(got) == len(want) == (5 if sample else 4)
     for g, w in zip(got[:4], want[:4]):
         assert_close(g.float().cpu().numpy(), w.float().cpu().numpy(), 2e-2)
-    assert got[4].cpu().tolist() == TA.sample_plain(
-        got[3], prev, u, kw["sampler"]).cpu().tolist()
+    if sample:
+        assert got[4].cpu().tolist() == TA.sample_plain(
+            got[3], prev, u, kw["sampler"]).cpu().tolist()
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The PyTorch port never imports JAX (the machine with the card has
-none), directly or through the JAX package's jax-importing modules."""
+"""The PyTorch port stands alone: it imports neither JAX (the machine
+with the card has none) nor any module of the JAX package, not even a
+jax-free one."""
 
 import os
 import subprocess
@@ -15,29 +16,54 @@ names = [m.name for m in pkgutil.walk_packages(tortoise_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k == "jax" or k.startswith(("jax.", "jaxlib",
-                                            "tortoise_tpu.pipeline",
-                                            "tortoise_tpu.ops",
-                                            "tortoise_tpu.models")))
+             if k in ("jax", "tortoise_tpu")
+             or k.startswith(("jax.", "jaxlib", "tortoise_tpu.")))
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 15, names
 assert {"tortoise_tpu_torch.ops.cuda.lvc",
         "tortoise_tpu_torch.ops.cuda.flash_attention",
         "tortoise_tpu_torch.serve",
-        "tortoise_tpu_torch.pipeline.streaming"} <= set(names), names
+        "tortoise_tpu_torch.pipeline.streaming",
+        "tortoise_tpu_torch.config", "tortoise_tpu_torch.io.checkpoint",
+        "tortoise_tpu_torch.text.tokenizer", "tortoise_tpu_torch.rng.reference",
+        "tortoise_tpu_torch.native"} <= set(names), names
 """
 
 SERVING_PROBE = """
 import sys
 import tortoise_tpu_torch.serve, tortoise_tpu_torch.pipeline.streaming
 bad = sorted(k for k in sys.modules
-             if k == "jax" or k.startswith(("jax.", "jaxlib", "tortoise_tpu.")
-                                           ) and not k.startswith(
-                 ("tortoise_tpu.config", "tortoise_tpu.io",
-                  "tortoise_tpu.text", "tortoise_tpu.rng",
-                  "tortoise_tpu.native")))
+             if k in ("jax", "tortoise_tpu")
+             or k.startswith(("jax.", "jaxlib", "tortoise_tpu.")))
 assert not bad, bad
+"""
+
+# A meta-path finder that refuses the JAX package and JAX itself, as a
+# machine without them would; then every port module imports and the tiny
+# synthesize() runs on the CPU.
+REFUSING_PROBE = """
+import importlib, importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("tortoise_tpu", "jax", "jaxlib"):
+            raise ImportError(f"refused: {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+import tortoise_tpu_torch
+for m in pkgutil.walk_packages(tortoise_tpu_torch.__path__,
+                               "tortoise_tpu_torch."):
+    importlib.import_module(m.name)
+from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels, synthesize
+models = TortoiseModels.random(0, tiny=True)
+res = synthesize(models, tokens=[1, 5, 9, 0], voice=np.zeros(64, np.float32),
+                 seed=0, device="cpu")
+assert res.audio.ndim == 1 and res.audio.size > 0
+assert np.isfinite(res.audio).all()
+print("ok", res.audio.shape)
 """
 
 
@@ -50,11 +76,22 @@ def test_port_imports_without_jax():
 
 def test_serving_modules_import_without_jax():
     """The server and the streaming path, imported alone, pull in no JAX
-    and, of the JAX package, only its jax-free host modules."""
+    and no module of the JAX package."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", SERVING_PROBE], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_runs_with_the_jax_package_refused():
+    """With imports of tortoise_tpu and jax refused, every port module
+    imports and the tiny synthesize() runs on the CPU."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", REFUSING_PROBE], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok"), proc.stdout
 
 
 def test_chip_smoke_imports_without_jax_and_needs_a_card():

@@ -55,7 +55,7 @@ def _both_windows(dparams, keep, lat, **geom):
     want = list(JST.stream_mel_windows(dparams, cfg, jnp.asarray(lat), keep,
                                        seed=9, **geom))
     got = list(TST.stream_mel_windows(dparams, cfg, torch.tensor(lat), keep,
-                                      seed=9, **geom))
+                                      seed=9, device="cpu", **geom))
     return got, want
 
 
@@ -84,12 +84,12 @@ def test_audio_chunks_match_jax(monkeypatch):
         .astype(np.float32)
     spans = [(0, 10), (10, 31), (31, 52), (52, 70)]
 
-    def chunks(mod):
+    def chunks(mod, **kw):
         return list(mod.stream_audio_chunks(
             params, cfg, ((s, e, mel[:, s:e]) for s, e in spans), out_len,
-            seed=7, margin=6))
+            seed=7, margin=6, **kw))
 
-    got, want = chunks(TST), chunks(JST)
+    got, want = chunks(TST, device="cpu"), chunks(JST)
     assert [(c.start_sample, c.final) for c in got] == \
         [(c.start_sample, c.final) for c in want]
     for g, w in zip(got, want):
@@ -99,7 +99,7 @@ def test_audio_chunks_match_jax(monkeypatch):
 def _chunked_audio(params, cfg, mel, spans, margin):
     chunks = list(TST.stream_audio_chunks(
         params, cfg, ((s, e, mel[:, s:e]) for s, e in spans), mel.shape[1],
-        seed=7, margin=margin))
+        seed=7, margin=margin, device="cpu"))
     assert chunks[-1].final and not any(c.final for c in chunks[:-1])
     return TST.collect_stream(chunks)
 
@@ -203,11 +203,13 @@ def test_validation_is_eager(dparams):
         with pytest.raises(ValueError, match="first_window_frames"):
             next(TST.stream_mel_windows(dparams, cfg, lat, 15, seed=9,
                                         window_frames=24, overlap_frames=8,
-                                        first_window_frames=fw))
+                                        first_window_frames=fw,
+                                        device="cpu"))
     with pytest.raises(ValueError, match="margin"):
         next(TST.stream_audio_chunks(
             random_vocoder_params(tiny_vocoder_config(), 0),
-            tiny_vocoder_config(), iter(()), 8, seed=0, margin=-1))
+            tiny_vocoder_config(), iter(()), 8, seed=0, margin=-1,
+            device="cpu"))
     with pytest.raises(ValueError, match="starts at"):
         TST.collect_stream([TST.StreamChunk(np.zeros(4, np.float32), 2,
                                             True)])

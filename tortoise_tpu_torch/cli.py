@@ -87,8 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="synthetic random checkpoint (flow testing)")
     p.add_argument("--tiny", action="store_true",
                    help="with --random-weights: tiny test-size models")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; fails without a card, "
+                        "pass --device cpu for the CPU)")
     return p
 
 
@@ -141,7 +142,7 @@ def run(argv=None):
         models = TortoiseModels.random(args.seed, tiny=args.tiny)
         tok_path = os.path.join(args.models, "tokenizer.json")
         if not args.tiny and os.path.exists(tok_path):
-            from tortoise_tpu.text.tokenizer import Tokenizer
+            from tortoise_tpu_torch.text.tokenizer import Tokenizer
 
             models.tokenizer = Tokenizer.from_file(tok_path)
     else:
@@ -259,7 +260,7 @@ def _run_stream(args, models, tokens, kw):
 
     import numpy as np
 
-    from tortoise_tpu.io.wav import write_wav
+    from tortoise_tpu_torch.io.wav import write_wav
     from tortoise_tpu_torch.pipeline.streaming import stream_synthesize
 
     t0 = time.monotonic()

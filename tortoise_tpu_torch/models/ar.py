@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from tortoise_tpu.config import ARConfig
+from tortoise_tpu_torch.config import ARConfig
 from tortoise_tpu_torch.ops.basic import gelu, layer_norm, pdot
 from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
 from tortoise_tpu_torch.ops.cuda.flash_attention import (

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from tortoise_tpu.config import DiffusionConfig
+from tortoise_tpu_torch.config import DiffusionConfig
 from tortoise_tpu_torch.ops.basic import group_norm_tc, pdot, pdot_int8act, silu
 from tortoise_tpu_torch.ops.conv import conv1d_nwc
 from tortoise_tpu_torch.ops.cuda.flash_attention import (

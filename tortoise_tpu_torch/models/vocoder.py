@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tortoise_tpu.config import VocoderConfig
+from tortoise_tpu_torch.config import VocoderConfig
 from tortoise_tpu_torch.ops.basic import leaky_relu
 from tortoise_tpu_torch.ops.conv import (
     conv1d,

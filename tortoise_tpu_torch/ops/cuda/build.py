@@ -35,10 +35,10 @@ SIGNATURES = {
     "tt_flash_causal_qkv": (_P, _I, _I, _I, _I, _P, _F, _P, _P),
     "tt_flash_bhtd": (_P,) * 5 + (_I,) * 7 + (_P,) * 3 + (_F, _I, _P),
     "tt_lvc_gated_residual": (_P,) * 5 + (_I,) * 6 + (_LL, _LL, _P),
-    "tt_decode_trunk": (_I,) * 6 + (_F,) + (_P,) * 26 + (_LL, _P, _P),
-    "tt_decode_head": (_I, _I, _I, _F) + (_P,) * 10 + (_LL, _P, _P),
-    "tt_decode_partial_floats": (_I, _I),
-    "tt_decode_sample": (_I, _I, _P, _P, _P, _F, _I, _F, _F, _P, _P),
+    "tt_decode_trunk": ((_I,) * 6 + (_F,) + (_P,) * 22 + (_I,) + (_P,) * 10
+                        + (_F, _I, _F, _F) + (_P,) * 4),
+    "tt_decode_partial_floats": (_I,) * 4,
+    "tt_decode_set_trace": (_P,),
 }
 
 _lock = threading.Lock()
@@ -116,8 +116,9 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = _LL if name == "tt_decode_partial_floats" \
-                    else ctypes.c_int
+                fn.restype = {"tt_decode_partial_floats": _LL,
+                              "tt_decode_set_trace": None}.get(name,
+                                                               ctypes.c_int)
             _lib = lib
         return _lib
 

@@ -8,17 +8,17 @@ temperature -> top-k <= 128 with first-index ties -> suffix-sum nucleus
 drop that never drops the top candidate -> inverse CDF against given
 uniforms).
 
-On the card (``csrc/decode_trunk.cu``) a step is a sequence of launches
-issued from one host call: per layer LN+int8 qkv matvec, cache attention
-with the fresh column folded into the softmax, proj matvec+residual,
-LN+fc matvec+GELU, fc_proj matvec+residual; then one head launch and one
-sampler launch (one block per row). The step is bound by streaming the
-int8 weights and the bf16 cache slice once; every matvec block reads its
-weight tile once for all B rows, so rows share the stream like the
-Pallas kernel's (L, B) grid, and the matvecs split their rows over
-blocks (summed deterministically by the last block of each column tile)
-to keep enough loads in flight. Launch count (~5 a layer) is the next
-cost.
+On the card (``csrc/decode_trunk.cu``) a step is ONE cooperative launch
+whose co-resident blocks walk every layer, the head and the sampler
+together, separated by grid barriers: per layer the int8 qkv matvec,
+cache attention with the fresh column folded into the softmax, proj
+matvec, residual + LN2, fc matvec + GELU, fc_proj matvec, residual + the
+next LN. Each LN runs once per row. A matvec item is a 128-column int8
+weight tile that arrives by TMA while the block is still in the phases
+before it, and runs on the tensor cores (mma.sync) with the batch rows as
+the other operand; its split-K sums are added in a fixed order, so the
+step repeats bit for bit. The step is bound by streaming the int8 weights
+and the bf16 cache slice once; a weight byte serves all B rows.
 
 The wrapper dispatches on the device of ``x``: CPU takes the plain
 PyTorch version below, CUDA launches the kernels (one count per call) or
@@ -137,6 +137,29 @@ def _arg(t: torch.Tensor, dtype, shape, name: str) -> int:
     return t.data_ptr()
 
 
+_scratch: dict = {}
+
+
+def _step_scratch(bsz: int, d: int, f: int, vp: int, dev) -> dict:
+    """The step's scratch buffers, cached per (B, widths, device): the LN
+    output and the kernel's zeroed scratch (partial sums, GELU output,
+    attention sums, counters; every launch leaves them ready for the
+    next). ``vp`` is 0 without the head."""
+    key = (bsz, d, f, vp, dev)
+    buf = _scratch.get(key)
+    if buf is None:
+        n = build.library().tt_decode_partial_floats(bsz, d, f, vp)
+        if n < 0:
+            raise ValueError(f"kernel A does not take B={bsz} D={d} F={f} "
+                             f"Vp={vp}")
+        bf = torch.bfloat16
+        buf = {"y": torch.empty((bsz, d), dtype=bf, device=dev),
+               "partial": torch.zeros((n,), dtype=torch.float32,
+                                      device=dev)}
+        _scratch[key] = buf
+    return buf
+
+
 def fused_decode_trunk(blocks: dict, cache_k: torch.Tensor,
                        cache_v: torch.Tensor, bias_row: torch.Tensor,
                        x: torch.Tensor, head: Optional[dict] = None,
@@ -161,12 +184,6 @@ def fused_decode_trunk(blocks: dict, cache_k: torch.Tensor,
         raise ValueError(f"kernel wants D = H*64, got D={d} H={n_head}")
     dev = x.device
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    xw = x.to(f32).contiguous().clone()
-    qkv_buf = torch.empty((bsz, 3 * d), dtype=f32, device=dev)
-    merged = torch.empty((bsz, d), dtype=bf, device=dev)
-    hdn = torch.empty((bsz, f), dtype=bf, device=dev)
-    k_rows = torch.empty((n_layer, bsz, d), dtype=bf, device=dev)
-    v_rows = torch.empty((n_layer, bsz, d), dtype=bf, device=dev)
     L = n_layer
 
     def pair(name, k_in, n_out):
@@ -182,14 +199,31 @@ def fused_decode_trunk(blocks: dict, cache_k: torch.Tensor,
     fw, fsc = pair("fc_w", d, f)
     fpw, fpsc = pair("fc_proj_w", f, d)
     lib = build.library()
-    stream = build.stream_ptr()
-    # split-K scratch: partial sums and per-column-tile counters (zeroed
-    # here; each matvec launch leaves them zero again)
-    vp = head["lm_wq"].shape[-1] if head is not None else 0
-    cap = lib.tt_decode_partial_floats(bsz, max(3 * d, f, vp))
-    partial = torch.empty((cap,), dtype=f32, device=dev)
-    counters = torch.zeros((max(3 * d, f, vp) // 128 + 1,),
-                           dtype=torch.int32, device=dev)
+    xw = x.to(f32).contiguous().clone()
+    k_rows = torch.empty((n_layer, bsz, d), dtype=bf, device=dev)
+    v_rows = torch.empty((n_layer, bsz, d), dtype=bf, device=dev)
+    out = (xw, k_rows, v_rows)
+    vp, head_args, logits, tok = 0, [None] * 7, None, None
+    smp_args = [None, None, 1.0, 1, 0.0, 1.0]
+    if head is not None:
+        vp = head["lm_wq"].shape[-1]
+        head_args = ([_arg(head[k], f32, (1, d), k)
+                      for k in ("ln_f_w", "ln_f_b", "lm_ln_w", "lm_ln_b")]
+                     + [_arg(head["lm_wq"], i8, (d, vp), "lm_wq"),
+                        _arg(head["lm_sc"], f32, (1, vp), "lm_sc"),
+                        _arg(head["lm_b"], f32, (1, vp), "lm_b")])
+        logits = torch.empty((bsz, vp), dtype=f32, device=dev)
+        out = out + (logits,)
+        if sampler is not None:
+            temperature, top_k, top_p_drop, penalty = sampler
+            prev = prev_u[0].to(torch.int32).contiguous()
+            u = prev_u[1].to(f32).contiguous()
+            tok = torch.empty((bsz, 1), dtype=torch.int32, device=dev)
+            smp_args = [_arg(prev, torch.int32, (bsz, 1), "prev"),
+                        _arg(u, f32, (bsz, 1), "u"), 1.0 / temperature,
+                        int(top_k), top_p_drop, penalty]
+            out = out + (tok,)
+    scr = _step_scratch(bsz, d, f, vp, dev)
     build.check(lib.tt_decode_trunk(
         L, bsz, c, d, n_head, f, eps, xw.data_ptr(),
         _arg(bias_row, f32, (bsz, c), "bias_row"),
@@ -198,34 +232,11 @@ def fused_decode_trunk(blocks: dict, cache_k: torch.Tensor,
         fw, fsc, vec("fc_b", f), fpw, fpsc, vec("fc_proj_b", d),
         _arg(cache_k, bf, (L, bsz, c, d), "cache_k"),
         _arg(cache_v, bf, (L, bsz, c, d), "cache_v"),
-        k_rows.data_ptr(), v_rows.data_ptr(), qkv_buf.data_ptr(),
-        merged.data_ptr(), hdn.data_ptr(), partial.data_ptr(), cap,
-        counters.data_ptr(), stream), "tt_decode_trunk")
-    out = (xw, k_rows, v_rows)
-    if head is not None:
-        logits = torch.empty((bsz, vp), dtype=f32, device=dev)
-        build.check(lib.tt_decode_head(
-            bsz, d, vp, eps, xw.data_ptr(),
-            *[_arg(head[k], f32, (1, d), k)
-              for k in ("ln_f_w", "ln_f_b", "lm_ln_w", "lm_ln_b")],
-            _arg(head["lm_wq"], i8, (d, vp), "lm_wq"),
-            _arg(head["lm_sc"], f32, (1, vp), "lm_sc"),
-            _arg(head["lm_b"], f32, (1, vp), "lm_b"),
-            logits.data_ptr(), partial.data_ptr(), cap,
-            counters.data_ptr(), stream), "tt_decode_head")
-        out = out + (logits,)
-        if sampler is not None:
-            temperature, top_k, top_p_drop, penalty = sampler
-            prev = prev_u[0].to(torch.int32).contiguous()
-            u = prev_u[1].to(f32).contiguous()
-            tok = torch.empty((bsz, 1), dtype=torch.int32, device=dev)
-            build.check(lib.tt_decode_sample(
-                bsz, vp, logits.data_ptr(),
-                _arg(prev, torch.int32, (bsz, 1), "prev"),
-                _arg(u, f32, (bsz, 1), "u"), 1.0 / temperature, int(top_k),
-                top_p_drop, penalty, tok.data_ptr(), stream),
-                "tt_decode_sample")
-            out = out + (tok,)
+        k_rows.data_ptr(), v_rows.data_ptr(), vp, *head_args,
+        None if logits is None else logits.data_ptr(), *smp_args,
+        None if tok is None else tok.data_ptr(), scr["y"].data_ptr(),
+        scr["partial"].data_ptr(),
+        build.stream_ptr()), "tt_decode_trunk")
     fused_decode_trunk.launches += 1
     return out
 

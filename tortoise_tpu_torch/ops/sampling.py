@@ -11,7 +11,7 @@ Two planes, as in the JAX package:
 - tensor plane (on the device), fed explicit uniforms;
 - host parity plane, ``host_process_logits_and_sample``: numpy float32 in
   the reference's exact operation order, driven by the mt19937
-  ``tortoise_tpu.rng.ReferenceRng``.
+  ``tortoise_tpu_torch.rng.ReferenceRng``.
 """
 
 from __future__ import annotations

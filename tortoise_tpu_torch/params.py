@@ -1,6 +1,6 @@
 """Parameter trees carried from the JAX package's numpy trees.
 
-The checkpoint loaders (``tortoise_tpu.io.checkpoint``: ``random_*_params``
+The checkpoint loaders (``tortoise_tpu_torch.io.checkpoint``: ``random_*_params``
 and ``convert_*_checkpoint``) deliver nested dicts/lists of numpy arrays
 with stacked (L, ...) layer blocks; int8 casts are ``(w_int8, scale)``
 tuples. ``tree_to_torch`` maps such a tree onto tensors with the same

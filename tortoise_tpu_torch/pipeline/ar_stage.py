@@ -11,7 +11,7 @@ Two sampler planes:
   differ from the JAX package's on this plane unless a test replays the
   JAX key chain through ``draw_uniform``.
 - ``sampler="reference"``: host loop driven by the mt19937
-  ``tortoise_tpu.rng.ReferenceRng``, reproducing the reference's seeded
+  ``tortoise_tpu_torch.rng.ReferenceRng``, reproducing the reference's seeded
   decision stream — the plane the port is held to token for token.
 
 Sequence post-processing (apply_padding, trim_keep_lengths, trim_latents)
@@ -28,13 +28,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tortoise_tpu.config import ARConfig
+from tortoise_tpu_torch.config import ARConfig
 from tortoise_tpu_torch.models import ar
 from tortoise_tpu_torch.ops import sampling as S
 from tortoise_tpu_torch.ops.basic import quantize_cols
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
-from tortoise_tpu_torch.pipeline.common import cached_cast, sync
+from tortoise_tpu_torch.pipeline.common import cached_cast, resolve_device, sync
 
 _MATMUL_WEIGHTS = ("attn_w", "proj_w", "fc_w", "fc_proj_w")
 TEXT_BUCKETS = (32, 64, 128, 192, 256, 320, 404)
@@ -200,6 +200,10 @@ def normalize_sampler(sampler_params) -> tuple:
     return (t, k, p, r)
 
 
+# steps between the sampling loop's reads of its all-stop flag
+STOP_CHECK_STEPS = 8
+
+
 def draw_uniform(generator, shape, device) -> torch.Tensor:
     """One step's f32 uniforms in [0, 1) (every draw of the sampling loop
     goes through here)."""
@@ -214,7 +218,13 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
     (stop included) under the reference's append-unless-finished rule;
     the loop ends when every row samples stop in the same step. One
     (B, 1) uniform draw per step, the first one included, like the JAX
-    package's key chain (ar_stage.py:299-325)."""
+    package's key chain (ar_stage.py:299-325).
+
+    The host reads the all-stop flag only every ``STOP_CHECK_STEPS``
+    steps: a read waits for the device, so reading it every step would
+    keep each step's host work from overlapping the step before. Steps
+    run past the all-stop step are dropped (their draws come after every
+    kept one)."""
     b = first_logits.shape[0]
     dev = first_logits.device
     stop = cfg.stop_mel_token
@@ -229,8 +239,12 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
     finished = tok == stop
     lengths = torch.ones((b,), dtype=torch.int32, device=dev)
     fuse = ar.can_fuse_sampling(params, cfg, compute_dtype, b, sampler)
+    # the step count at which every row last sampled stop, or the maximum
+    end = torch.where((tok == stop).all(), 1, cfg.max_decode_steps)
     step = 1
-    while step < cfg.max_decode_steps and not bool((tok == stop).all()):
+    while step < cfg.max_decode_steps:
+        if step % STOP_CHECK_STEPS == 1 and int(end) <= step:
+            break
         prev = tok
         u = draw_u()
         if fuse:
@@ -247,7 +261,9 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
         lengths = torch.where(finished, lengths, lengths + 1)
         finished = finished | (tok == stop)
         step += 1
-    return (torch.stack(tokens, dim=1).cpu().numpy(),
+        end = torch.where((end == cfg.max_decode_steps) & (tok == stop).all(),
+                          step, end)
+    return (torch.stack(tokens[:int(end)], dim=1).cpu().numpy(),
             lengths.cpu().numpy())
 
 
@@ -257,7 +273,7 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
                          int8_weights: bool = False,
                          return_device_latents: bool = False,
                          substage_timings: Optional[dict] = None,
-                         sampler_params=None, device="cpu") -> Tuple:
+                         sampler_params=None, device=None) -> Tuple:
     """On-device ("jax"-plane) AR stage over the rows of ``tokens_list``
     (ragged lengths share the longest row's text bucket, masked), with
     one shared (d,) voice or per-row (B, d) voices. Returns
@@ -266,6 +282,7 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     plane each decode step is one kernel-A call when B <= 16 and top_k <=
     128 (``ar.can_fuse_sampling``); otherwise decode_step and the plain
     sampler."""
+    device = resolve_device(device)
     sampler = normalize_sampler(sampler_params)
     tokens_list = [list(map(int, t)) for t in tokens_list]
     if not tokens_list:
@@ -328,7 +345,7 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
                    int8_weights: bool = False,
                    return_device_latents: bool = False,
                    substage_timings: Optional[dict] = None,
-                   sampler_params=None, device="cpu") -> Tuple:
+                   sampler_params=None, device=None) -> Tuple:
     """Run stage 1 for ``batch_size`` candidates of one text. Returns
     (trimmed_latents, padded_sequences) — or, with
     return_device_latents, (latents (B, 500, D) on the device, keep_lens,
@@ -336,6 +353,7 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
 
     sampler="jax": on-device loop seeded by ``seed``;
     sampler="reference": host loop driven by ``rng`` (a ReferenceRng)."""
+    device = resolve_device(device)
     tokens = list(map(int, tokens))
     _check_token_range([tokens], cfg)
     if sampler == "jax":
@@ -372,7 +390,7 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
         st["ar_prefill_s"] = time.monotonic() - t_sub
         t_sub = time.monotonic()
     if rng is None:
-        from tortoise_tpu.rng import ReferenceRng
+        from tortoise_tpu_torch.rng import ReferenceRng
 
         rng = ReferenceRng(seed)
     first_ids = [1] * (bucket + 1) + [cfg.start_mel_token]

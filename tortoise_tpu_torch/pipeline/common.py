@@ -13,15 +13,13 @@ def round_up(n: int, m: int) -> int:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device a run asked for; None picks the first CUDA card when
-    there is one, else the CPU. A CUDA request without a card raises —
-    nothing falls back to the CPU quietly."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    device = torch.device(device)
+    """The device a run asked for; None means the card (``cuda``). A CUDA
+    device without a card raises: nothing falls back to the CPU, which a
+    caller asks for by name (``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA card is "
-                           "available")
+                           "available; pass device=\"cpu\" to run on the CPU")
     return device
 
 

@@ -24,14 +24,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tortoise_tpu.config import DiffusionConfig, mel_length_for_latents
+from tortoise_tpu_torch.config import DiffusionConfig, mel_length_for_latents
 from tortoise_tpu_torch.models import diffusion as dmodel
 from tortoise_tpu_torch.ops.basic import quantize_cols
 from tortoise_tpu_torch.ops.relpos import relative_position_buckets
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
 from tortoise_tpu_torch.pipeline import schedule as ds
-from tortoise_tpu_torch.pipeline.common import cached_cast, round_up, sync
+from tortoise_tpu_torch.pipeline.common import (
+    cached_cast,
+    resolve_device,
+    round_up,
+    sync,
+)
 
 LAT_BUCKET = 32
 OUT_BUCKET = 64
@@ -178,7 +183,7 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
                            cfg: DiffusionConfig = DiffusionConfig(),
                            seed: int = 0, variance_swap: bool = True,
                            compute_dtype=None, int8_weights: bool = False,
-                           device="cpu", progress=None,
+                           device=None, progress=None,
                            substage_timings: Optional[dict] = None):
     """Device latents (B, >=L, D) with per-row keep lengths -> the mel as
     a device (B, n_mel, out_pad) tensor plus per-row lengths (numpy), all
@@ -186,6 +191,7 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
     the steps of ``_progress_cuts``. ``substage_timings`` receives the
     walls of the weight cast and of the rest (conditioner plus the
     denoising loop), synchronising the device at each boundary."""
+    device = resolve_device(device)
     st = substage_timings
     t_sub = time.monotonic()
     params = _prepare_params(params, int8_weights, device)
@@ -236,10 +242,11 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
 def diffusion_batch(params, latents_list,
                     cfg: DiffusionConfig = DiffusionConfig(), seed: int = 0,
                     variance_swap: bool = True, compute_dtype=None,
-                    int8_weights: bool = False, device="cpu", progress=None):
+                    int8_weights: bool = False, device=None, progress=None):
     """Host list of (L_i, 1024) latents -> list of (100, T_i) host mels,
     decoded together in one masked batch (diffusion_batch_device on the
     rows zero-padded to the longest one's bucket)."""
+    device = resolve_device(device)
     lats = [np.asarray(l, np.float32) for l in latents_list]
     if not lats:
         raise ValueError("latents_list is empty")
@@ -259,13 +266,14 @@ def diffusion_batch(params, latents_list,
 def diffusion(params, latents: np.ndarray,
               cfg: DiffusionConfig = DiffusionConfig(), seed: int = 0,
               rng=None, variance_swap: bool = True, compute_dtype=None,
-              int8_weights: bool = False, device="cpu",
+              int8_weights: bool = False, device=None,
               progress=None) -> np.ndarray:
     """Latents (L, 1024) -> normalized mel (100, T) on the host.
 
     rng=None: torch.Generator noise (diffusion_batch at B=1);
     rng=ReferenceRng: the reference's mt19937 noise stream, with
     ``progress`` after every step."""
+    device = resolve_device(device)
     if rng is None:
         return diffusion_batch(params, [latents], cfg, seed, variance_swap,
                                compute_dtype, int8_weights, device,

@@ -37,7 +37,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
-from tortoise_tpu.config import (
+from tortoise_tpu_torch.config import (
     MEL_PAD_VALUE,
     DiffusionConfig,
     VocoderConfig,
@@ -99,7 +99,7 @@ def stream_mel_windows(params, cfg: DiffusionConfig, latents_dev, keep_len,
                        compute_dtype=None, int8_weights: bool = False,
                        variance_swap: bool = True,
                        first_window_frames: Optional[int] = None,
-                       device="cpu"):
+                       device=None):
     """Yield (start, end, mel_block (n_mel, end-start) np.f32) spans of
     FINALIZED normalized mel, in order, covering [0, out_len).
 
@@ -110,6 +110,7 @@ def stream_mel_windows(params, cfg: DiffusionConfig, latents_dev, keep_len,
     first_window_frames: an optional smaller FIRST window — first-audio
     latency is about the first window's loop, which scales with its
     width."""
+    device = resolve_device(device)
     w, ov = _check_geometry(window_frames, overlap_frames,
                             first_window_frames)
     params = dst._prepare_params(params, int8_weights, device)
@@ -187,7 +188,7 @@ def _vocode_chunk(vparams, vcfg, mel_in, noise, span, compute_dtype):
 
 def stream_audio_chunks(vparams, vcfg: VocoderConfig, mel_spans,
                         out_len: int, seed: int, margin: int = 32,
-                        compute_dtype=None, device="cpu"
+                        compute_dtype=None, device=None
                         ) -> Iterator[StreamChunk]:
     """Consume (start, end, mel_block) spans and yield audio chunks.
 
@@ -197,6 +198,7 @@ def stream_audio_chunks(vparams, vcfg: VocoderConfig, mel_spans,
     and shift-equivariant at the upsample stride). The right margin
     delays emission by ``margin`` frames. The vocoder noise is one global
     draw sliced per chunk."""
+    device = resolve_device(device)
     m = int(margin)
     if m < 0:
         # a negative margin would slice past the finalized mel span
@@ -261,7 +263,7 @@ def stream_synthesize(models, message: Optional[str] = None,
 
     A plain function returning a generator, so the inputs and the window
     geometry are checked when it is called, before any device work."""
-    from tortoise_tpu.io.voice import load_voice_latent
+    from tortoise_tpu_torch.io.voice import load_voice_latent
 
     _check_geometry(window_frames, overlap_frames, first_window_frames)
     if int(vocoder_margin) < 0:

@@ -19,10 +19,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from tortoise_tpu.config import ARConfig, DiffusionConfig, VocoderConfig
-from tortoise_tpu.io.voice import load_voice_latent
-from tortoise_tpu.io.wav import write_wav
-from tortoise_tpu.text.tokenizer import Tokenizer
+from tortoise_tpu_torch.config import ARConfig, DiffusionConfig, VocoderConfig
+from tortoise_tpu_torch.io.voice import load_voice_latent
+from tortoise_tpu_torch.io.wav import write_wav
+from tortoise_tpu_torch.text.tokenizer import Tokenizer
 from tortoise_tpu_torch.pipeline import ar_stage, diffusion_stage, vocoder_stage
 from tortoise_tpu_torch.pipeline.common import resolve_device, sync
 
@@ -45,7 +45,7 @@ class TortoiseModels:
                       **cfgs) -> "TortoiseModels":
         """Load the reference's model files from a directory laid out like
         its ``models/`` (ggml-*.bin + tokenizer.json)."""
-        from tortoise_tpu.io.checkpoint import (
+        from tortoise_tpu_torch.io.checkpoint import (
             convert_ar_checkpoint,
             convert_diffusion_checkpoint,
             convert_vocoder_checkpoint,
@@ -79,12 +79,12 @@ class TortoiseModels:
         ``diffusion`` / ``vocoder`` replace config fields before the
         weights are drawn, e.g. ``diffusion={"n_head": 32,
         "use_flash": True}`` sizes the rel-pos tables for 32 heads."""
-        from tortoise_tpu.config import (
+        from tortoise_tpu_torch.config import (
             tiny_ar_config,
             tiny_diffusion_config,
             tiny_vocoder_config,
         )
-        from tortoise_tpu.io.checkpoint import (
+        from tortoise_tpu_torch.io.checkpoint import (
             random_ar_params,
             random_diffusion_params,
             random_vocoder_params,
@@ -223,7 +223,7 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
     if voice is None:
         raise ValueError("a voice latent (array or path) is required")
     if sampler == "reference" and rng is None:
-        from tortoise_tpu.rng import ReferenceRng
+        from tortoise_tpu_torch.rng import ReferenceRng
 
         rng = ReferenceRng(seed)
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tortoise_tpu.config import (
+from tortoise_tpu_torch.config import (
     MEL_PAD_VALUE,
     TACOTRON_MEL_MAX,
     TACOTRON_MEL_MIN,
@@ -25,7 +25,11 @@ from tortoise_tpu.config import (
 from tortoise_tpu_torch.models import vocoder as vmodel
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
-from tortoise_tpu_torch.pipeline.common import cached_cast, round_up
+from tortoise_tpu_torch.pipeline.common import (
+    cached_cast,
+    resolve_device,
+    round_up,
+)
 
 MEL_BUCKET = 32
 
@@ -71,9 +75,10 @@ def _padded_mel(mel_norm, lens, pad_total, cfg):
 @torch.inference_mode()
 def vocoder_batch_device(params, mel_dev, mel_lens,
                          cfg: VocoderConfig = VocoderConfig(), seed: int = 0,
-                         compute_dtype=None, device="cpu"):
+                         compute_dtype=None, device=None):
     """Device (B, n_mel, T) normalized mel with per-row lengths -> list of
     per-row float32 host audio arrays; noise from a torch.Generator."""
+    device = resolve_device(device)
     params = device_params(params, device)
     lens = np.asarray(mel_lens, np.int64)
     totals = lens + cfg.mel_pad_frames
@@ -89,9 +94,10 @@ def vocoder_batch_device(params, mel_dev, mel_lens,
 
 
 def vocoder_batch(params, mel_list, cfg: VocoderConfig = VocoderConfig(),
-                  seed: int = 0, compute_dtype=None, device="cpu"):
+                  seed: int = 0, compute_dtype=None, device=None):
     """Host list of (n_mel, M_i) normalized mels -> list of host audio
     arrays, vocoded together with per-row masked lengths."""
+    device = resolve_device(device)
     mels = [np.asarray(m, np.float32) for m in mel_list]
     if not mels:
         raise ValueError("mel_list is empty")
@@ -106,11 +112,12 @@ def vocoder_batch(params, mel_list, cfg: VocoderConfig = VocoderConfig(),
 @torch.inference_mode()
 def vocoder(params, mel: np.ndarray, cfg: VocoderConfig = VocoderConfig(),
             seed: int = 0, rng=None, compute_dtype=None,
-            device="cpu") -> np.ndarray:
+            device=None) -> np.ndarray:
     """Normalized mel (n_mel, M) -> float32 audio (audio_length(M),).
     rng=None: torch.Generator noise (vocoder_batch at B=1);
     rng=ReferenceRng: the reference's mt19937 noise stream (drawn before
     the model pass)."""
+    device = resolve_device(device)
     mel = np.asarray(mel, np.float32)
     if rng is None:
         return vocoder_batch(params, [mel], cfg, seed, compute_dtype,

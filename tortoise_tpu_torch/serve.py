@@ -36,8 +36,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from tortoise_tpu.io.voice import load_voice_latent
-from tortoise_tpu.io.wav import streaming_wav_header, wav_bytes
+from tortoise_tpu_torch.io.voice import load_voice_latent
+from tortoise_tpu_torch.io.wav import streaming_wav_header, wav_bytes
 from tortoise_tpu_torch.models.ar import FUSED_MAX_BATCH
 from tortoise_tpu_torch.pipeline.common import resolve_device
 from tortoise_tpu_torch.pipeline.synthesize import (
