@@ -15,8 +15,10 @@ Phases (any failure exits nonzero before the result line):
    f32), and the time of both (CUDA events, after warm-up); D1 also
    against kernel B on one qkv, and B and C at head width 128; the
    serving shapes: A on ragged rows at B = 4 and 16, B at a stream
-   window (8, 384) and on a
-   batch's ragged CFG rows, E at a 32-frame chunk;
+   window (8, 384) and on a batch's ragged CFG rows; D1 at a ragged
+   T = 1000 and on a server batch's 16 CFG rows; E per hop at L = 2208
+   and at a 32-frame chunk (timed), at a ragged L = 2186 and on two
+   batch rows of stacked kernels;
 4. end to end at full production width (random weights, bf16 + int8,
    stand-in tokens), five requests, each with the launch counts set to 0
    before it and read after it: request 1 through the CLI at
@@ -164,6 +166,47 @@ def sdpa_ms(torch, q, k, v, add, label) -> float:
           f"ms; kernels {[n[:70] for n in names]}")
     del mask
     return ms
+
+
+# Phase 3's attention and LVC shapes and inputs, which
+# scripts/torch_kernel_times.py times as well.
+# B: (b, t, valid length of row 1 or None), 16 heads of 64; the first timed
+B_CASES = ((2, 2176, None), (2, 1000, 937), (8, 384, None), (8, 2176, 1813))
+C_SHAPE = (8, 16, 535)  # (b, heads, S): the AR latent pass at batch 8
+# D1: (b, t, heads, head width, key masks), timed at head width 32
+D1_CASES = ((2, 2176, 32, 32, (None, 1900)), (2, 1000, 32, 32, (937,)),
+            (16, 1000, 32, 32, ("ragged",)), (2, 2176, 16, 64, (None,)))
+WIDE = ((2, 2176), (8, 535))  # (b, t) of B and C at 8 heads of 128
+# E: (L, batch rows) at each hop: 500 latents' 2208 bucket, a stream
+# chunk, the ragged 2186 frames, then two batch rows
+E_CASES = ((2208, 1), (32, 1), (2186, 1), (2208, 2), (32, 2))
+E_HOPS = (8, 64, 256)
+
+
+def bf16_qkv(torch, g, b, t, h, d):
+    return torch.randn((b, t, 3 * h * d), generator=g,
+                       device="cuda").to(torch.bfloat16)
+
+
+def views(qkv, h, d):
+    """(B, H, T, D) q, k, v views of a per-head-interleaved qkv."""
+    b, t, _ = qkv.shape
+    x = qkv.view(b, t, h, 3, d)
+    return tuple(x[:, :, :, p].transpose(1, 2) for p in range(3))
+
+
+def lvc_inputs(torch, g, b, L, hop):
+    """Kernel E's arguments for one conv block of b rows at the vocoder's
+    widths (32 channels in and gated): x, the block's kernel as the
+    vocoder passes it (a [:, 1] slice of the 4 blocks' stacked kernels,
+    so rows lie the stack's batch stride apart), bias, residual, hop."""
+    t = L * hop
+    stacked = torch.randn((b, 4, 32, 64, 3, L), generator=g,
+                          device="cuda") * 0.1
+    return (torch.randn((b, 32, t), generator=g, device="cuda"),
+            stacked[:, 1], torch.randn((b, 64, L), generator=g,
+                                       device="cuda"),
+            torch.randn((b, 32, t), generator=g, device="cuda"), hop)
 
 
 def _kernel_a_weights(torch):
@@ -525,10 +568,8 @@ def check_kernel_b(torch, results):
     H, worst, tol = 16, 0.0, 2e-2
     table = torch.randn((32, H), generator=g, device=dev) * 0.3
     timing = None
-    for b, t, n_valid in ((2, 2176, None), (2, 1000, 937), (8, 384, None),
-                          (8, 2176, 1813)):
-        qkv = torch.randn((b, t, 3 * H * 64), generator=g,
-                          device=dev).to(torch.bfloat16)
+    for b, t, n_valid in B_CASES:
+        qkv = bf16_qkv(torch, g, b, t, H, 64)
         valid = None
         if n_valid is not None:
             lens = [t] * b
@@ -553,7 +594,7 @@ def check_kernel_b(torch, results):
                     qkv, H, valid, bias_vec=bias_vec)),
                 cuda_ms(torch, lambda: K.flash_attention_packed_plain(
                     qkv, H, valid, bias_vec), iters=3))
-            q, k, v = _views(qkv, H, 64)
+            q, k, v = views(qkv, H, 64)
             lib_ms = sdpa_ms(torch, q, k, v,
                              K._toeplitz_full(bias_vec, t, t)[None],
                              "B (2, 2176)")
@@ -573,9 +614,8 @@ def check_kernel_c(torch, results):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
-    b, H, s, tol = 8, 16, 535, 2e-2
-    qkv = torch.randn((b, s, 3 * H * 64), generator=g,
-                      device=dev).to(torch.bfloat16)
+    (b, H, s), tol = C_SHAPE, 2e-2
+    qkv = bf16_qkv(torch, g, b, s, H, 64)
     valid = torch.ones((b, s), dtype=torch.bool, device=dev)
     valid[:, 1 + 30:1 + 32] = False
     got = K.flash_attention_causal_qkv(qkv, H, valid)
@@ -610,55 +650,62 @@ def _check(torch, name, got, want, tol, worst):
     return max(worst, err)
 
 
-def _views(qkv, h, d):
-    """(B, H, T, D) q, k, v views of a per-head-interleaved qkv."""
-    b, t, _ = qkv.shape
-    x = qkv.view(b, t, h, 3, d)
-    return tuple(x[:, :, :, p].transpose(1, 2) for p in range(3))
-
-
 def check_kernel_d1(torch, results):
-    """Kernel D1, the denoiser's fallback attention: 32 heads of 32 over
-    strided views of the (2, 2176, 3072) bf16 qkv, unmasked and masked;
-    then 16 heads of 64 held against kernel B on the same qkv."""
+    """Kernel D1, the denoiser's fallback attention, on the wgmma + TMA
+    body: 32 heads of 32 over strided views of the (2, 2176, 3072) bf16
+    qkv, unmasked and masked; a ragged T = 1000; the 16 CFG rows of an
+    8-request server batch at T = 1000 with ragged masks; then 16 heads
+    of 64 held against kernel B on the same qkv. Each timed shape prints
+    the kernel's, SDPA's and the bound's ms."""
     from tortoise_tpu_torch.ops.cuda import flash_attention as K
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
-    t, worst, tol, timing = 2176, 0.0, 2e-2, None
-    for h, d in ((32, 32), (16, 64)):
-        qkv = torch.randn((2, t, 3 * h * d), generator=g,
-                          device=dev).to(torch.bfloat16)
-        q, k, v = _views(qkv, h, d)
+    worst, tol = 0.0, 2e-2
+    for b, t, h, d, masks in D1_CASES:
+        qkv = bf16_qkv(torch, g, b, t, h, d)
+        q, k, v = views(qkv, h, d)
         kw = dict(bias_table=torch.randn((32, h), generator=g,
                                          device=dev) * 0.3,
                   bias_formula=True)
-        for n_valid in (None, 1900):
+        vec = K.relpos_bias_vector(kw["bias_table"], t)
+        for n_valid in masks:
             valid = None
-            if n_valid is not None:
-                valid = torch.arange(t, device=dev)[None, :] < torch.tensor(
-                    [[t], [n_valid]], device=dev)
+            if n_valid == "ragged":  # rows 2i, 2i+1: one request's CFG pair
+                lens = torch.tensor([t - 37 * (i // 2) for i in range(b)],
+                                    device=dev)
+                valid = torch.arange(t, device=dev)[None, :] < lens[:, None]
+            elif n_valid is not None:
+                lens = torch.tensor([t] * (b - 1) + [n_valid], device=dev)
+                valid = torch.arange(t, device=dev)[None, :] < lens[:, None]
+            label = f"D1 ({b}, {h}, {t}, {d}) valid={n_valid}"
             got = K.flash_attention(q, k, v, None, valid, **kw)
             want = K.flash_attention_plain(q, k, v, None, valid, **kw)
             torch.cuda.synchronize()
-            worst = _check(torch, f"D1 ({h} x {d}) valid={n_valid}", got,
-                           want, tol, worst)
+            worst = _check(torch, label, got, want, tol, worst)
             if n_valid is None:
                 unmasked = got
-            if h == 32 and n_valid is None:
-                timing = (
-                    cuda_ms(torch, lambda: K.flash_attention(
-                        q, k, v, None, valid, **kw)),
-                    cuda_ms(torch, lambda: K.flash_attention_plain(
-                        q, k, v, None, valid, **kw), iters=3))
-                vec = K.relpos_bias_vector(kw["bias_table"], t)
-                lib_ms = sdpa_ms(torch, q, k, v,
-                                 K._toeplitz_full(vec, t, t)[None],
-                                 "D1 (2, 32, 2176, 32)")
-                d1_bound = bound(nbytes(qkv, vec, got),
-                                 flops=4.0 * 2 * h * t * t * d,
-                                 exps=float(2 * h * t * t))
-        if h == 16:
+            if d == 64:
+                continue
+
+            def call():
+                return K.flash_attention(q, k, v, None, valid, **kw)
+            ms = cuda_ms(torch, call)
+            add = K._toeplitz_full(vec, t, t)[None]
+            if valid is not None:
+                add = add + K._additive_mask(valid)[:, None, None, :]
+            lib_ms = sdpa_ms(torch, q, k, v, add, label)
+            d_bound = bound(nbytes(qkv, vec, valid, got),
+                            flops=4.0 * b * h * t * t * d,
+                            exps=float(b * h * t * t))
+            print(f"  {label}: kernel {ms:.3f} ms, SDPA {lib_ms:.3f} ms, "
+                  f"bound {d_bound['bound_ms']:.4f} ms")
+            if (b, t, n_valid) == (2, 2176, None):
+                plain_ms = cuda_ms(torch, lambda: K.flash_attention_plain(
+                    q, k, v, None, valid, **kw), iters=3)
+                main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                            **d_bound)
+        if d == 64:
             via_b = K.flash_attention_packed(qkv, h,
                                              bias_table=kw["bias_table"])
             worst = _check(torch, "D1 (16 x 64) against kernel B",
@@ -669,10 +716,10 @@ def check_kernel_d1(torch, results):
                 q, k, v, None, None, **kw))
             print(f"  (2, 2176) x 16 heads of 64: kernel B {ms_b:.3f} ms, "
                   f"kernel D1 {ms_d:.3f} ms")
-    print(f"  D1 (2, 2176) x 32 heads of 32: kernel {timing[0]:.3f} ms, "
-          f"plain {timing[1]:.3f} ms, SDPA {lib_ms:.3f} ms")
-    results["D1"] = dict(max_abs_err=worst, ms=timing[0], plain_ms=timing[1],
-                         library_ms=lib_ms, **d1_bound)
+    print(f"  D1 (2, 2176) x 32 heads of 32: kernel {main['ms']:.3f} ms, "
+          f"plain {main['plain_ms']:.3f} ms, SDPA {main['library_ms']:.3f} "
+          f"ms")
+    results["D1"] = dict(max_abs_err=worst, **main)
 
 
 def check_kernel_d2(torch, results):
@@ -731,82 +778,92 @@ def check_kernel_d2(torch, results):
 
 def check_wide_heads(torch):
     """Kernels B and C at head width 128 (8 heads of a 1024 width): their
-    wrappers run kernel D on strided views of the same qkv."""
+    wrappers run the wgmma + TMA body on strided views of the same qkv,
+    two 64-column boxes a tile. Then both at head width 16."""
     from tortoise_tpu_torch.ops.cuda import flash_attention as K
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
-    qkv = torch.randn((2, 2176, 3 * 1024), generator=g,
-                      device=dev).to(torch.bfloat16)
+    (b, t), (bc, s) = WIDE
+    qkv = bf16_qkv(torch, g, b, t, 8, 128)
     bias_vec = K.relpos_bias_vector(
-        torch.randn((32, 8), generator=g, device=dev) * 0.3, 2176)
-    _check(torch, "B at 8 heads of 128 (2, 2176)",
+        torch.randn((32, 8), generator=g, device=dev) * 0.3, t)
+    _check(torch, f"B at 8 heads of 128 ({b}, {t})",
            K.flash_attention_packed(qkv, 8, bias_vec=bias_vec),
            K.flash_attention_packed_plain(qkv, 8, None, bias_vec), 2e-2, 0.0)
     ms_b = cuda_ms(torch, lambda: K.flash_attention_packed(
         qkv, 8, bias_vec=bias_vec))
-    qkv = torch.randn((8, 535, 3 * 1024), generator=g,
-                      device=dev).to(torch.bfloat16)
-    valid = torch.ones((8, 535), dtype=torch.bool, device=dev)
+    qkv = bf16_qkv(torch, g, bc, s, 8, 128)
+    valid = torch.ones((bc, s), dtype=torch.bool, device=dev)
     valid[:, 31:33] = False
-    _check(torch, "C at 8 heads of 128 (8, 535)",
+    _check(torch, f"C at 8 heads of 128 ({bc}, {s})",
            K.flash_attention_causal_qkv(qkv, 8, valid),
            K.flash_attention_causal_qkv_plain(qkv, 8, valid), 2e-2, 0.0)
     ms_c = cuda_ms(torch, lambda: K.flash_attention_causal_qkv(qkv, 8,
                                                                 valid))
     print(f"  head width 128: B route {ms_b:.3f} ms, C route {ms_c:.3f} ms")
+    # the tiny configs' 4 heads of 16: flash_attention_bhtd.cu's mma.sync
+    # body with a bf16 output (B through D1, C causal through D2)
+    qkv = torch.randn((2, 230, 3 * 64), generator=g,
+                      device=dev).to(torch.bfloat16)
+    valid = torch.arange(230, device=dev)[None, :] < torch.tensor(
+        [[230], [201]], device=dev)
+    bias_vec = K.relpos_bias_vector(
+        torch.randn((32, 4), generator=g, device=dev) * 0.3, 230)
+    _check(torch, "B at 4 heads of 16 (2, 230)",
+           K.flash_attention_packed(qkv, 4, valid, bias_vec=bias_vec),
+           K.flash_attention_packed_plain(qkv, 4, valid, bias_vec), 2e-2, 0.0)
+    _check(torch, "C at 4 heads of 16 (2, 230)",
+           K.flash_attention_causal_qkv(qkv, 4, valid),
+           K.flash_attention_causal_qkv_plain(qkv, 4, valid), 2e-2, 0.0)
 
 
 def check_kernel_e(torch, results):
-    """Kernel E at the three vocoder stages for 500 latents (M = 2186
-    frames in a 2208 bucket; hops 8, 64, 256; one conv block's slice of
-    the stacked predicted kernels), timed; then at a stream chunk's
-    smallest width, one 32-frame bucket, at each hop."""
+    """Kernel E per vocoder stage (hops 8, 64, 256), each checked and
+    timed (kernel, plain, bound): one conv block's slice of the stacked
+    predicted kernels for 500 latents (M = 2186 frames in a 2208 bucket),
+    a stream chunk's 32-frame bucket, the ragged L = 2186, and two batch
+    rows taken as a block slice of the stacked kernels (the vocoder's
+    batch stride). The first shape's three hops make the result line."""
     from tortoise_tpu_torch.ops.cuda import lvc as K
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    L, worst, tol, ms, plain_ms = 2208, 0.0, 1e-4, 0.0, 0.0
-    bound_ms, bound_by = 0.0, {}
-    for hop in (8, 64, 256):
-        t = L * hop
-        x = torch.randn((1, 32, t), generator=g, device=dev)
-        kern = torch.randn((1, 4, 32, 64, 3, L), generator=g,
-                           device=dev) * 0.1
-        bias = torch.randn((1, 64, L), generator=g, device=dev)
-        res = torch.randn((1, 32, t), generator=g, device=dev)
-        args = (x, kern[:, 1], bias, res, hop)
-        got = K.lvc_gated_residual(*args)
-        want = K.lvc_gated_residual_plain(*args)
-        torch.cuda.synchronize()
-        worst = _check(torch, f"E hop {hop} (1, 32, {t})", got, want, tol,
-                       worst)
-        k_ms = cuda_ms(torch, lambda: K.lvc_gated_residual(*args))
-        p_ms = cuda_ms(torch, lambda: K.lvc_gated_residual_plain(*args))
-        print(f"  E hop {hop}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        ms, plain_ms = ms + k_ms, plain_ms + p_ms
-        # f32 FMAs outside the tensor cores: 32 in x 3 taps x 64 out per
-        # sample; bytes: x, this block's kernels, bias, residual, output
-        e_bound = bound(nbytes(args[:4], got), flops=2.0 * 32 * 3 * 64 * t,
-                        flop_rate=F32_FLOPS)
-        bound_ms += e_bound["bound_ms"]
-        bound_by[e_bound["bound_by"]] = bound_by.get(e_bound["bound_by"],
-                                                     0.0) + e_bound["bound_ms"]
-        del x, kern, bias, res, args, got, want
-    for hop in (8, 64, 256):
-        L = 32
-        args = (torch.randn((1, 32, L * hop), generator=g, device=dev),
-                torch.randn((1, 32, 64, 3, L), generator=g, device=dev) * .1,
-                torch.randn((1, 64, L), generator=g, device=dev),
-                torch.randn((1, 32, L * hop), generator=g, device=dev), hop)
-        worst = _check(torch, f"E hop {hop} (1, 32, {L * hop}), L = {L}",
-                       K.lvc_gated_residual(*args),
-                       K.lvc_gated_residual_plain(*args), tol, worst)
-    print(f"  E one conv block per stage: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
-    results["E"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                        library_ms=None, bound_ms=bound_ms,
-                        bound_by=max(bound_by, key=bound_by.get))
+    worst, tol, main = 0.0, 1e-4, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bound_by = {}
+    for L, b in E_CASES:
+        for hop in E_HOPS:
+            args = lvc_inputs(torch, g, b, L, hop)
+            label = f"E hop {hop} (B={b}, L={L}, T={L * hop})"
+            got = K.lvc_gated_residual(*args)
+            want = K.lvc_gated_residual_plain(*args)
+            torch.cuda.synchronize()
+            worst = _check(torch, label, got, want, tol, worst)
+            k_ms = cuda_ms(torch, lambda: K.lvc_gated_residual(*args))
+            p_ms = cuda_ms(torch, lambda: K.lvc_gated_residual_plain(
+                *args), iters=3)
+            # f32 FMAs outside the tensor cores: 32 in x 3 taps x 64
+            # out per sample; bytes: x, this block's kernels, bias,
+            # residual, output
+            e_bound = bound(nbytes(args[:4], got),
+                            flops=2.0 * 32 * 3 * 64 * L * hop * b,
+                            flop_rate=F32_FLOPS)
+            print(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} "
+                  f"ms, bound {e_bound['bound_ms']:.4f} ms "
+                  f"({e_bound['bound_by']}); plan "
+                  f"{K.lvc_plan(b, 32, 32, L, hop)}")
+            if (L, b) == (2208, 1):
+                main["ms"] += k_ms
+                main["plain_ms"] += p_ms
+                main["bound_ms"] += e_bound["bound_ms"]
+                by = e_bound["bound_by"]
+                bound_by[by] = bound_by.get(by, 0.0) + e_bound["bound_ms"]
+            del args, got, want
+    print(f"  E one conv block per stage (L = 2208, 3 hops summed): kernel "
+          f"{main['ms']:.3f} ms, plain {main['plain_ms']:.3f} ms, bound "
+          f"{main['bound_ms']:.4f} ms")
+    results["E"] = dict(max_abs_err=worst, library_ms=None,
+                        bound_by=max(bound_by, key=bound_by.get), **main)
 
 
 def run_request(torch, batch_size: int, out_dir: str, smi: str):
@@ -850,10 +907,11 @@ FALLBACK = dict(diffusion={"n_head": 32, "use_flash": True},
                 vocoder={"use_pallas_lvc": True})
 
 
-def run_request_3(torch, smi: str):
+def run_request_3(torch, smi: str, models=None) -> dict:
     """synthesize() on the fallback + fused-LVC slice at B=1: text -> AR
     (kernel A) -> diffusion (kernel D1) -> vocoder (kernel E) -> audio,
-    bf16 + int8, the jax sampler, stand-in tokens, zero voice."""
+    bf16 + int8, the jax sampler, stand-in tokens, zero voice. Returns
+    the stage timings with the call's wall ("wall_s") and "rtf"."""
     import numpy as np
 
     from tortoise_tpu_torch.pipeline.synthesize import (
@@ -862,7 +920,8 @@ def run_request_3(torch, smi: str):
     )
     from tortoise_tpu_torch.pipeline.vocoder_stage import audio_length
 
-    models = TortoiseModels.random(0, **FALLBACK)
+    if models is None:
+        models = TortoiseModels.random(0, **FALLBACK)
     t0 = time.monotonic()
     res = synthesize(models, tokens=STANDIN_TOKENS,
                      voice=np.zeros((1024,), np.float32), seed=0,
@@ -881,13 +940,15 @@ def run_request_3(torch, smi: str):
     t = res.timings
     st = {k: round(v, 3) for k, v in t.items()}
     stages = ("autoregressive_s", "diffusion_s", "vocoder_s")
+    rtf = sum(t[k] for k in stages) / dur
     print(f"  request 3 (fallback diffusion, fused LVC): mel {mel.shape}, "
           f"audio {len(audio)} samples ({dur:.2f} s); stage walls {st}; "
-          f"call wall {wall:.2f} s, RTF {sum(t[k] for k in stages) / dur:.3f}"
+          f"call wall {wall:.2f} s, RTF {rtf:.3f}"
           f", AR {t['ar_decode_loop_s'] / t['ar_decode_steps'] * 1e3:.3f} "
           f"ms/step, diffusion "
           f"{t['diffusion_loop_s'] / t['diffusion_steps'] * 1e3:.3f} "
           f"ms/CFG-step [{smi}]")
+    return dict(t, wall_s=wall, rtf=rtf)
 
 
 def check_small_agreement(torch, launch_counts, reset_launch_counts):
@@ -1300,7 +1361,7 @@ def main(argv=None) -> int:
               pallas + "flash_attention.py:441"),
         "D1": ("flash_attention (grouped band-bias body)",
                "flash_attention_grouped",
-               "tortoise_tpu_torch/csrc/flash_attention_bhtd.cu",
+               "tortoise_tpu_torch/csrc/flash_attention.cu",
                pallas + "flash_attention.py:154"),
         "D2": ("flash_attention (generic body)", "flash_attention_generic",
                "tortoise_tpu_torch/csrc/flash_attention_bhtd.cu",

@@ -199,6 +199,59 @@ def test_grouped_kernel_d1_matches_plain_on_card(cuda_device, d, n_valid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("b,t,lens", [(2, 333, None), (16, 200, "ragged"),
+                                      (2, 260, (260, 177))])
+def test_d1_on_the_tma_body_matches_plain_on_card(cuda_device, d, b, t,
+                                                  lens):
+    """Kernel D1's bf16 work on the wgmma + TMA body: a ragged T (not a
+    multiple of the 64-key tile or the 128-row block), 16 batch rows with
+    ragged key masks (a server batch's CFG rows), and a masked row."""
+    h = 3
+    qkv = torch.tensor(_qkv(b, t, h, d, d + t)).bfloat16().to(cuda_device)
+    q, k, v = (qkv.reshape(b, t, h, 3, d)[:, :, :, p].transpose(1, 2)
+               for p in range(3))
+    valid = None
+    if lens == "ragged":
+        n = torch.tensor([t - 11 * (i // 2) for i in range(b)],
+                         device=cuda_device)
+        valid = torch.arange(t, device=cuda_device)[None, :] < n[:, None]
+    elif lens is not None:
+        valid = torch.arange(t, device=cuda_device)[None, :] < torch.tensor(
+            lens, device=cuda_device)[:, None]
+    kw = dict(bias_table=torch.randn(32, h, device=cuda_device) * 0.3,
+              bias_formula=True)
+    assert TF.attention_body(q.dtype, d, "D1") == "tma"
+    before = TF._grouped_flash.launches
+    got = TF.flash_attention(q, k, v, None, valid, **kw)
+    assert TF._grouped_flash.launches == before + 1
+    want = TF.flash_attention_plain(q, k, v, None, valid, **kw)
+    assert got.dtype == torch.bfloat16
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
+def test_tma_body_copies_a_view_that_breaks_the_16_byte_rule(cuda_device):
+    """A q view 2 bytes off a 16-byte boundary, with rows 66 bytes apart,
+    cannot be read through a tensor map: the wrapper copies it, as its
+    docstring says, and the result still matches plain."""
+    b, h, t, d = 2, 2, 150, 32
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    wide = torch.randn((b, h, t, d + 1), generator=g,
+                       device=cuda_device).bfloat16()
+    q = wide[..., 1:]
+    k, v = (torch.randn((b, h, t, d), generator=g, device=cuda_device)
+            .bfloat16() for _ in range(2))
+    with pytest.raises(ValueError):
+        TF.tma_layout(q)
+    kw = dict(bias_table=torch.randn(32, h, device=cuda_device) * 0.3,
+              bias_formula=True)
+    got = TF.flash_attention(q, k, v, **kw)
+    want = TF.flash_attention_plain(q, k, v, **kw)
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("mode", ["none", "materialized", "buckets",
@@ -244,18 +297,49 @@ def test_kernel_d_rejects_other_head_widths(cuda_device):
 @pytest.mark.cuda
 def test_packed_and_causal_kernels_take_head_width_128(cuda_device):
     """Kernels B and C at the other head width the JAX package routes to
-    them: the wrappers run kernel D on strided views of the same qkv."""
+    them: the wrappers run the wgmma + TMA body on strided views of the
+    same qkv (two 64-column boxes a tile) and count as B and C."""
     h, t = 2, 230
     qkv = torch.tensor(_qkv(2, t, h, 128, 7)).bfloat16().to(cuda_device)
     valid = torch.arange(t, device=cuda_device)[None, :] < torch.tensor(
         [[t], [201]], device=cuda_device)
     bias_vec = TF.relpos_bias_vector(
         torch.randn(32, h, device=cuda_device) * 0.3, t)
+    before = (TF.flash_attention_packed.launches,
+              TF.flash_attention_causal_qkv.launches)
     got = TF.flash_attention_packed(qkv, h, valid, bias_vec=bias_vec)
     want = TF.flash_attention_packed_plain(qkv, h, valid, bias_vec)
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
     got = TF.flash_attention_causal_qkv(qkv, h, valid)
+    assert (TF.flash_attention_packed.launches,
+            TF.flash_attention_causal_qkv.launches) == (before[0] + 1,
+                                                        before[1] + 1)
     want = TF.flash_attention_causal_qkv_plain(qkv, h, valid)
+    assert got.dtype == torch.bfloat16
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [64, 230])
+def test_packed_and_causal_kernels_take_head_width_16(cuda_device, t):
+    """Kernels B and C at the tiny configs' head width (4 heads of 16):
+    the wrappers run flash_attention_bhtd.cu's mma.sync body with a bf16
+    output, B as D1 (the Toeplitz bias) and C as D2 (causal)."""
+    h = 4
+    qkv = torch.tensor(_qkv(2, t, h, 16, 17)).bfloat16().to(cuda_device)
+    valid = torch.arange(t, device=cuda_device)[None, :] < torch.tensor(
+        [[t], [t - 29]], device=cuda_device)
+    bias_vec = TF.relpos_bias_vector(
+        torch.randn(32, h, device=cuda_device) * 0.3, t)
+    before = (TF._grouped_flash.launches, TF._generic_flash.launches)
+    got = TF.flash_attention_packed(qkv, h, valid, bias_vec=bias_vec)
+    want = TF.flash_attention_packed_plain(qkv, h, valid, bias_vec)
+    assert got.dtype == torch.bfloat16
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+    got = TF.flash_attention_causal_qkv(qkv, h, valid)
+    want = TF.flash_attention_causal_qkv_plain(qkv, h, valid)
+    assert (TF._grouped_flash.launches, TF._generic_flash.launches) == (
+        before[0] + 1, before[1] + 1)
     assert got.dtype == torch.bfloat16
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
 
@@ -295,6 +379,25 @@ def test_lvc_kernel_matches_plain_on_card(cuda_device, c_in, c_res, l, hop):
     got = TL.lvc_gated_residual(x, kern_all[:, 1], bias, res, hop)
     assert TL.lvc_gated_residual.launches == before + 1
     want = TL.lvc_gated_residual_plain(x, kern_all[:, 1], bias, res, hop)
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [8, 64, 256])
+@pytest.mark.parametrize("l", [32, 2186, 2208])
+def test_lvc_kernel_at_vocoder_lengths_on_card(cuda_device, l, hop):
+    """Kernel E at the vocoder's lengths (a 32-frame stream chunk, the
+    ragged 2186 frames of 500 latents, their 2208 bucket) at each stage's
+    hop, on two batch rows taken as a block slice of the stacked
+    kernels (the vocoder's batch stride)."""
+    g = torch.Generator(device=cuda_device).manual_seed(l + hop)
+    x = torch.randn((2, 32, l * hop), generator=g, device=cuda_device)
+    kern_all = torch.randn((2, 4, 32, 64, 3, l), generator=g,
+                           device=cuda_device) * 0.1
+    bias = torch.randn((2, 64, l), generator=g, device=cuda_device)
+    res = torch.randn((2, 32, l * hop), generator=g, device=cuda_device)
+    got = TL.lvc_gated_residual(x, kern_all[:, 2], bias, res, hop)
+    want = TL.lvc_gated_residual_plain(x, kern_all[:, 2], bias, res, hop)
     assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
 
 

@@ -11,9 +11,74 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define TT_EXPORT extern "C" __attribute__((visibility("default")))
 
 namespace tt {
+
+// Host-side facts about one kernel that cost a runtime call to set or
+// ask for, done once per process and device instead of at every launch:
+// the opt-in to the card's largest dynamic shared memory, and how many
+// blocks of one launch shape the whole card holds at once. A launcher
+// keeps one of these as a static per kernel instantiation.
+class KernelFacts {
+ public:
+  static constexpr int kMaxDevices = 16;
+
+  // cudaFuncSetAttribute(fn, MaxDynamicSharedMemorySize) to the card's
+  // per-block opt-in limit (227 KB on an H100)
+  cudaError_t allow_smem(const void* fn) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu_);
+    if (!opted_[dev]) {
+      int optin = 0;
+      err = cudaDeviceGetAttribute(&optin,
+                                   cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      if (err != cudaSuccess) return err;
+      opted_[dev] = true;
+    }
+    return cudaSuccess;
+  }
+
+  // blocks of fn resident on the whole card at `threads` threads and
+  // `smem` dynamic bytes a block (SMs x blocks an SM, at least one an SM)
+  cudaError_t card_blocks(const void* fn, int threads, size_t smem,
+                          int* blocks) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::lock_guard<std::mutex> lock(mu_);
+    Occupancy& o = occ_[dev];
+    if (o.blocks == 0 || o.threads != threads || o.smem != smem) {
+      int sms = 0, per_sm = 0;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                            threads, smem);
+      if (err != cudaSuccess) return err;
+      o = Occupancy{smem, threads, sms * (per_sm > 1 ? per_sm : 1)};
+    }
+    *blocks = o.blocks;
+    return cudaSuccess;
+  }
+
+ private:
+  struct Occupancy {
+    size_t smem = 0;
+    int threads = 0, blocks = 0;
+  };
+  std::mutex mu_;
+  bool opted_[kMaxDevices] = {};
+  Occupancy occ_[kMaxDevices];
+};
 
 // bf16 round trip: the value a float takes after a cast to bfloat16
 // (the JAX package rounds matmul operands this way on its bf16 plane)
@@ -126,6 +191,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -1,67 +1,101 @@
-// Exact-softmax attention straight off a fused qkv tensor (kernels B, C).
+// Exact-softmax attention on wgmma + TMA (kernels B, C and D1's bf16 work).
 //
 // Replaces tortoise_tpu/ops/pallas/flash_attention.py:
 //   B  flash_attention_packed      — non-causal, per-head-interleaved qkv
 //      (c = h*3D + part*D + d), T5 rel-pos bias, additive key mask;
 //   C  flash_attention_causal_qkv  — causal, part-major qkv
-//      (c = part*H*D + h*D + d), additive key mask.
+//      (c = part*H*D + h*D + d), additive key mask;
+//   D1 _grouped_flash / _attn_kernel_rowblock — the band-bias body of
+//      flash_attention over (B, H, T, D): non-causal, Tq == Tkv, T5 bias,
+//      key mask, output in q's dtype (here bf16).
+// The three are one function on (B, H, T, D) operands. The generic body
+// (attn_kernel) reads q, k and v as strided views (d contiguous) of the
+// caller's memory, each through a tensor map of its own, so views of a
+// fused qkv need no copy: it runs D1 at every width and B and C at head
+// widths 32 and 128. B and C at width 64 keep qkv_kernel, the same design
+// over one map of the fused qkv (see its note). D2's modes (a materialized
+// bias, causal on the (B, H, T, D) API, f32 output, f32 inputs) and head
+// width 16 stay on flash_attention_bhtd.cu.
 //
 // What bounds it on the card: ~4*T*T*D FLOPs per (batch, head) on the
-// tensor cores (QK^T and PV) and T*T exps on the MUFU, against a qkv read
-// of only T*3*D bf16; at (2, 2176) x 16 heads both take ~0.04 ms.
+// tensor cores (QK^T and PV) and T*T exps on the MUFU, against a q/k/v
+// read of only 3*T*D bf16. At head width 64 the two are about equal; at
+// width 32 the exps bound it (twice the heads for the same FLOPs), so the
+// score epilogue is kept lean: one FFMA, an add and an ex2 a score.
 //
-// Design (Hopper, head width 64): one block owns 128 query rows of one
-// (batch, head) and walks the keys in 64-key tiles.
+// Design (Hopper, head width D in {32, 64, 128}): one block owns 128
+// query rows of one (batch, head) and walks the keys in 64-key tiles.
 // - A producer warp issues TMA loads: the Q tile once, then K and V tiles
 //   into a 3-stage shared-memory ring guarded by mbarriers (full: the
 //   tile's bytes landed; empty: all 8 consumer warps are done with it).
-//   One 3-D tensor map (channels, T, B) over the fused qkv expresses both
-//   layouts: a K or V tile is the box at channel offset k_off / v_off,
-//   rows j0..j0+63 of batch b, and rows past T read as zeros. The 128-byte
-//   swizzle of the TMA box is the layout wgmma reads.
-// - Two consumer warpgroups own 64 query rows each. S = Q K^T runs as four
-//   wgmma.m64n64k16 with Q and K from shared memory; the online softmax
-//   stays in registers; O += P V runs as four wgmma.m64n64k16 with P from
-//   registers (the S accumulator's layout is the A-fragment layout) and V
-//   from shared memory read MN-major (the B-operand transpose).
-// - The per-head Toeplitz bias window (the T + 191 deltas j - i this
-//   block can see) and the additive key mask are staged once per block.
+//   Each operand has a 4-D map over its view, dims sorted by stride (d
+//   first); a tile is a box of 64 rows of min(D, 64) columns, and rows
+//   past T read as zeros. Rows of 64 bytes (D = 32) take the 64-byte
+//   swizzle, rows of 128 bytes the 128-byte one; D = 128 loads two
+//   64-column boxes per tile. The swizzled box is the layout wgmma reads.
+// - Two consumer warpgroups own 64 query rows each. S = Q K^T runs as
+//   D/16 wgmma.m64n64k16 with Q and K from shared memory; the online
+//   softmax stays in registers; O += P V runs as 4 key steps of
+//   wgmma.m64n{32,64}k16 (one per 64-column box) with P from registers
+//   (the S accumulator's layout is the A-fragment layout) and V from
+//   shared memory read MN-major (the B-operand transpose).
+// - The softmax is in base 2: the per-head Toeplitz bias window (the
+//   T + 129 deltas j - i this block can see) and the additive key mask
+//   are staged once a block, already times log2 e, so a score is one
+//   FFMA (s * scale log2 e + mask + bias) and an ex2. The window is kept
+//   twice, the second copy one delta ahead, so every thread reads its
+//   (bias, bias) pairs as aligned 8-byte loads; a row's pair for key
+//   chunk c is the next row half's pair for chunk c + 1.
+// - Each warpgroup waits for its QK^T before the softmax and for its PV
+//   before the next tile; the two warpgroups of a block and the two
+//   blocks of an SM interleave on the tensor cores and the MUFU. P stays
+//   f32 in the score registers and is packed to bf16 for PV. (Issuing
+//   tile t's QK^T and tile t-1's PV together, the softmax of t between
+//   them, measured slower at every width: it spills at the 96 registers
+//   two blocks of 288 threads leave a thread.)
 // - C's blocks stop at their diagonal: tiles above it are never loaded,
 //   and a warpgroup skips the last tile when all its rows precede it.
 //
 // Numerics follow the Pallas kernels: bf16 q/k/v, f32 scores, the
 // softmax weights rounded to bf16 before the PV product, f32 normaliser
-// summed from the unrounded weights, output rounded to bf16. The score
-// scale 1/sqrt(64) is a power of two, so scaling the f32 score equals
-// scaling q. The softmax runs in base 2 on the MUFU (scores times
-// log2 e, then ex2), which is e^x to within its rounding. The bias arrives as a per-head Toeplitz vector
-// bias[h, (j - i) + T - 1] (the bucket ids depend only on j - i); the
-// mask as an additive 0 / -1e30 row per batch row.
+// summed from the unrounded weights, output rounded to bf16. The bias
+// arrives as a per-head Toeplitz vector bias[h, (j - i) + T - 1] (the
+// bucket ids depend only on j - i); the mask as an additive 0 / -1e30 row
+// per batch row.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kD = 64;             // head width the kernels are built for
 constexpr int kBQ = 128;           // query rows per block (2 warpgroups)
 constexpr int kBK = 64;            // keys per K/V tile
 constexpr int kStages = 3;         // K/V ring depth
 constexpr int kConsumers = 256;    // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
-constexpr int kTile = kBK * kD;    // bf16 elements of one 64 x 64 tile
-constexpr unsigned kTileBytes = kTile * 2;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// shared-memory layout (offsets from a 1024-byte aligned base)
-constexpr int kOffQ = 0;                           // 2 x 64 query rows
-constexpr int kOffK = kOffQ + 2 * kTile * 2;       // kStages K tiles
-constexpr int kOffV = kOffK + kStages * kTile * 2; // kStages V tiles
-constexpr int kOffBar = kOffV + kStages * kTile * 2;
-constexpr int kOffF32 = kOffBar + 128;             // bias window, mask
+template <int D>
+struct Geo {
+  static_assert(D == 32 || D == 64 || D == 128, "head width 32, 64 or 128");
+  static constexpr int kBW = D < 64 ? D : 64;       // columns of one box
+  static constexpr int kNB = D / kBW;               // boxes across a row
+  static constexpr int kBoxBytes = kBK * kBW * 2;   // 64 rows of one box
+  static constexpr int kTileBytes = kNB * kBoxBytes;
+  // shared-memory layout (offsets from a 1024-byte aligned base)
+  static constexpr int kOffK = 2 * kTileBytes;      // after 2 x 64 Q rows
+  static constexpr int kOffV = kOffK + kStages * kTileBytes;
+  static constexpr int kOffBar = kOffV + kStages * kTileBytes;
+  static constexpr int kOffF32 = kOffBar + 128;     // bias windows, mask
+  static constexpr int kMinBlocks = D > 64 ? 1 : 2;  // per SM (registers)
+};
 
-// wgmma shared-memory descriptor of a 1024-byte aligned tile of 64-element
-// (128-byte) rows in the 128-byte swizzle: 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+// wgmma shared-memory descriptor of a box of 64 rows of kBW bf16 in the
+// swizzle of its row width (128 or 64 bytes): 8-row groups 8 rows apart
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  constexpr uint64_t row = Geo<D>::kBW * 2;
+  constexpr uint64_t layout = row == 128 ? 1 : 2;  // B128 or B64
   const uint64_t a = tt::smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
+  return ((a & 0x3FFFF) >> 4) | (((8 * row) >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -70,23 +104,28 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// keeps the compiler from moving accumulator accesses across the async ops
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+// keep the compiler from moving register accesses across the async ops
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-#define TT_ACC32(d)                                                         \
+#define TT_ACC16(d)                                                         \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define TT_ACC32(d)                                                         \
+  TT_ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+      "+f"(d[30]), "+f"(d[31])
+#define TT_REGS16                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define TT_REGS32                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -103,9 +142,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d += A (registers) * B (smem, MN-major: the transposed B operand)
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t a[4],
-                                            uint64_t db) {
+// d += A (registers) * B (smem, MN-major: the transposed B operand),
+// 64 x N x 16 for N = 64 or 32
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t a[4],
+                                         uint64_t db) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TT_REGS32
@@ -113,10 +153,17 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t a[4],
       : TT_ACC32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t a[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " TT_REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : TT_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 using tt::pack_bf16;
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // 2^x on the MUFU (scores are kept in log2 units: e^s = 2^(s log2 e))
 __device__ __forceinline__ float ex2(float x) {
@@ -125,9 +172,408 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// S = Q K^T of one warpgroup's 64 rows and one 64-key tile, issued and
+// committed (not waited for; the caller fences first)
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[32], const uint8_t* qt,
+                                         const uint8_t* kt) {
+  constexpr int kSteps = Geo<D>::kBW / 16;  // k-steps inside one box
+  const uint64_t dq = smem_desc<D>(qt), dk = smem_desc<D>(kt);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = ((kk / kSteps) * Geo<D>::kBoxBytes + (kk % kSteps) * 32) >> 4;
+    wgmma_ss(s, dq + off, dk + off, kk);
+  }
+  wgmma_commit();
+}
+
+// O += P V over one 64-key tile, issued and committed (not waited for;
+// the caller fences first)
+template <int D>
+__device__ __forceinline__ void issue_pv(
+    float (&o)[Geo<D>::kNB][Geo<D>::kBW / 2], const uint32_t (&pa)[4][4],
+    const uint8_t* vt) {
+  const uint64_t dv = smem_desc<D>(vt);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // over the tile's keys, 16 at a time
+#pragma unroll
+    for (int nb = 0; nb < Geo<D>::kNB; ++nb)
+      wgmma_rs(o[nb], pa[kk],
+               dv + ((nb * Geo<D>::kBoxBytes + kk * 16 * Geo<D>::kBW * 2) >> 4));
+  wgmma_commit();
+}
+
+template <int D>
+__device__ __forceinline__ void fence_out(
+    float (&o)[Geo<D>::kNB][Geo<D>::kBW / 2]) {
+#pragma unroll
+  for (int nb = 0; nb < Geo<D>::kNB; ++nb) fence_regs(o[nb]);
+}
+
+// The online-softmax update of one 64-key tile. s is the m64n64
+// accumulator: s[4c + 2hf + e] is row r0 + 8 hf, key j0 + 8c + 2tg + e.
+// bp points at this thread's (bias, bias) pair of key 2tg, row r0 in tile
+// 0 (pairs of row r0 + 8 and chunk c are the row-r0 pairs of chunk c - 1);
+// mp at the mask pair of key 2tg. Returns the factor the running output
+// must be scaled by (per row half); s is left holding the unrounded
+// softmax weights P.
+template <bool kCausal>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], const float* bp, const float* mp, int j0, int r0,
+    int tg, float sl2, float (&m)[2], float (&l)[2], float (&corr)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  // causal attention (C) has no bias: the window is not read
+  float2 prev = kCausal ? float2{0.f, 0.f}
+                        : *reinterpret_cast<const float2*>(bp + j0 - 8);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float2 cur = kCausal ? float2{0.f, 0.f}
+                               : *reinterpret_cast<const float2*>(bp + j0 + 8 * c);
+    const float2 mk = *reinterpret_cast<const float2*>(mp + j0 + 8 * c);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float2 bv = hf ? prev : cur;
+      float v0 = fmaf(s[4 * c + 2 * hf], sl2, kCausal ? mk.x : mk.x + bv.x);
+      float v1 = fmaf(s[4 * c + 2 * hf + 1], sl2,
+                      kCausal ? mk.y : mk.y + bv.y);
+      if (kCausal) {
+        const int row = r0 + 8 * hf, j = j0 + 8 * c + 2 * tg;
+        if (j > row) v0 = -INFINITY;
+        if (j + 1 > row) v1 = -INFINITY;
+      }
+      s[4 * c + 2 * hf] = v0;
+      s[4 * c + 2 * hf + 1] = v1;
+      mx[hf] = fmaxf(mx[hf], fmaxf(v0, v1));
+    }
+    prev = cur;
+  }
+  float mb[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 1));
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(0xffffffffu, mx[hf], 2));
+    const float mn = fmaxf(m[hf], mx[hf]);
+    mb[hf] = mn == -INFINITY ? 0.f : mn;  // no valid key yet
+    corr[hf] = ex2(m[hf] - mb[hf]);       // 0 while m is -inf
+    l[hf] *= corr[hf];
+    m[hf] = mn;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int hf = (i >> 1) & 1;
+    s[i] = ex2(s[i] - mb[hf]);
+    l[hf] += s[i];
+  }
+}
+
+// P (bf16) as the A operand of the 4 key steps of PV
+__device__ __forceinline__ void pack_p(const float (&s)[32],
+                                       uint32_t (&pa)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 32; i += 2)
+    // S chunk c = i / 4 covers keys 8c..8c+7: key step c / 2, register
+    // (row half) + 2 * (second 8 keys of the step)
+    pa[i >> 3][((i >> 1) & 1) + 2 * ((i >> 2) & 1)] = pack_bf16(s[i], s[i + 1]);
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(
+    float (&o)[Geo<D>::kNB][Geo<D>::kBW / 2], const float (&corr)[2]) {
+#pragma unroll
+  for (int nb = 0; nb < Geo<D>::kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < Geo<D>::kBW / 2; ++i) o[nb][i] *= corr[(i >> 1) & 1];
+}
+
+// the coordinate of map slot `slot` (1..3): the one of t, h, b placed there
+__device__ __forceinline__ int coord(int perm, int slot, int t, int h, int b) {
+  return (perm & 3) == slot ? t : ((perm >> 2) & 3) == slot ? h : b;
+}
+
+// one box (64 rows from t0, columns d0..) of head h, batch row b
+__device__ __forceinline__ void load_box(void* dst, const CUtensorMap* map,
+                                         int perm, uint64_t* bar, int d0,
+                                         int t0, int h, int b) {
+  tt::tma_load_4d(dst, map, bar, d0, coord(perm, 1, t0, h, b),
+                  coord(perm, 2, t0, h, b), coord(perm, 3, t0, h, b));
+}
+
+struct Out {
+  __nv_bfloat16* p;
+  long long s[3];  // element strides of (b, h, t)
+};
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, Geo<D>::kMinBlocks)
+attn_kernel(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, int qperm, int kperm,
+            int vperm, int T, const float* __restrict__ bias,
+            const float* __restrict__ mask, float scale, const Out out) {
+  using G = Geo<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (tt::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = smem;
+  uint8_t* ks = smem + G::kOffK;
+  uint8_t* vs = smem + G::kOffV;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kOffBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+  const int tpad = (T + kBK - 1) / kBK * kBK;
+  const int win = tpad + kBQ + 2;  // bias window: deltas of this block
+  float* bs0 = reinterpret_cast<float*>(smem + G::kOffF32);
+  float* bs1 = bs0 + win;  // one delta ahead: bs1[x] = bs0[x + 1]
+  float* ms = bs1 + win;   // tpad
+
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int i0 = qt * kBQ;
+  const int kend = kCausal ? min(T, i0 + kBQ) : T;
+  const int ntiles = (kend + kBK - 1) / kBK;
+
+  if (tid == kConsumers) {  // the maps' descriptors, while the block stages
+    const CUtensorMap* maps[3] = {&qmap, &kmap, &vmap};
+    for (int x = 0; x < 3; ++x)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(maps[x]))
+                   : "memory");
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tt::mbar_init(&full[s], 1);
+      tt::mbar_init(&empty[s], kConsumers / 32);
+    }
+    tt::mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the bias of delta = j - i sits at bs0[delta + i0 + kBQ - 1], times
+  // log2 e
+  const float* bias_h = bias ? bias + (size_t)h * (2 * T - 1) : nullptr;
+  for (int x = tid; !kCausal && x < win + 1; x += kThreads) {
+    const int dlt = min(max(x - (i0 + kBQ - 1), 1 - T), T - 1);
+    const float v = bias_h ? bias_h[dlt + T - 1] * kLog2e : 0.f;
+    if (x < win) bs0[x] = v;
+    if (x > 0) bs1[x - 1] = v;
+  }
+  const float* mask_b = mask ? mask + (size_t)b * T : nullptr;
+  for (int j = tid; j < tpad; j += kThreads)
+    ms[j] = j < T ? (mask_b ? mask_b[j] * kLog2e : 0.f) : -INFINITY;
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // producer warp: one lane keeps the ring full
+    if (tid == kConsumers) {
+      const int nq = i0 + kBQ / 2 < T ? 2 : 1;  // Q boxes holding rows < T
+      tt::mbar_expect_tx(qbar, nq * G::kTileBytes);
+      for (int w = 0; w < nq; ++w)
+        for (int nb = 0; nb < G::kNB; ++nb)
+          load_box(qs + w * G::kTileBytes + nb * G::kBoxBytes, &qmap, qperm,
+                   qbar, nb * G::kBW, i0 + w * kBQ / 2, h, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int st = t % kStages, n = t / kStages;
+        if (n > 0) tt::mbar_wait(&empty[st], (n - 1) & 1);
+        tt::mbar_expect_tx(&full[st], 2 * G::kTileBytes);
+        for (int nb = 0; nb < G::kNB; ++nb) {
+          load_box(ks + st * G::kTileBytes + nb * G::kBoxBytes, &kmap, kperm,
+                   &full[st], nb * G::kBW, t * kBK, h, b);
+          load_box(vs + st * G::kTileBytes + nb * G::kBoxBytes, &vmap, vperm,
+                   &full[st], nb * G::kBW, t * kBK, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows i0 + 64 wg .. + 63; this thread holds
+  // rows r0 and r0 + 8 of the accumulators (mma fragment layout)
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int r0 = i0 + wg * 64 + warp * 16 + g;
+  const int wg_last = i0 + wg * 64 + 63;  // last row of the warpgroup
+  const uint8_t* qtile = qs + wg * G::kTileBytes;
+  // window index of (key 2tg of tile 0, row r0); its parity picks the copy
+  // that makes the pair 8-byte aligned
+  const int xb = 2 * tg - r0 + i0 + kBQ - 1;
+  const float* bp = (xb & 1) ? bs1 + xb - 1 : bs0 + xb;
+  const float* mp = ms + 2 * tg;
+  const float sl2 = scale * kLog2e;
+
+  float o[G::kNB][G::kBW / 2];
+#pragma unroll
+  for (int nb = 0; nb < G::kNB; ++nb)
+#pragma unroll
+    for (int i = 0; i < G::kBW / 2; ++i) o[nb][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[32], corr[2];
+  uint32_t pa[4][4];
+
+  tt::mbar_wait(qbar, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t % kStages, j0 = t * kBK;
+    tt::mbar_wait(&full[st], (t / kStages) & 1);
+    if (!kCausal || j0 <= wg_last) {
+      wgmma_fence();
+      issue_qk<D>(s, qtile, ks + st * G::kTileBytes);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_tile<kCausal>(s, bp, mp, j0, r0, tg, sl2, m, l, corr);
+      rescale<D>(o, corr);
+      pack_p(s, pa);
+      fence_out<D>(o);
+      wgmma_fence();
+      issue_pv<D>(o, pa, vs + st * G::kTileBytes);
+      wgmma_wait<0>();
+      fence_out<D>(o);
+    }
+    __syncwarp();
+    if (lane == 0) tt::mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
+    l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
+    const int i = r0 + hf * 8;
+    if (i < T) {
+      const float inv = 1.f / fmaxf(l[hf], 1e-30f);
+      __nv_bfloat16* orow = out.p + b * out.s[0] + h * out.s[1] + i * out.s[2];
+#pragma unroll
+      for (int nb = 0; nb < G::kNB; ++nb)
+#pragma unroll
+        for (int j = 0; j < G::kBW / 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + nb * 64 + j * 8 + tg * 2) =
+              pack_bf16(o[nb][4 * j + 2 * hf] * inv,
+                        o[nb][4 * j + 2 * hf + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+size_t smem_bytes(int T) {
+  const int tpad = (T + kBK - 1) / kBK * kBK;
+  return 1024 + Geo<D>::kOffF32 + sizeof(float) * (2 * (tpad + kBQ + 2) + tpad);
+}
+
+// An operand's tensor map: dims[4] (d first, then t, h, b in the order of
+// their strides), byte strides[3] of dims 1..3, and perm, the map slot
+// (1..3) of t, h and b in bits 0-1, 2-3, 4-5. The box is min(D, 64)
+// columns by 64 rows of t.
+bool encode(CUtensorMap* map, const void* p, const long long* dims,
+            const long long* strides, int perm, int D) {
+  tt::EncodeTiled enc = tt::encode_tiled();
+  if (!enc || reinterpret_cast<uintptr_t>(p) % 16 || dims[0] != D) return false;
+  const int bw = D < 64 ? D : 64;
+  cuuint64_t gd[4];
+  cuuint64_t gs[3];
+  cuuint32_t box[4] = {(cuuint32_t)bw, 1, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  for (int x = 0; x < 4; ++x) {
+    if (dims[x] < 1 || dims[x] > (1ll << 31)) return false;
+    gd[x] = (cuuint64_t)dims[x];
+  }
+  for (int x = 0; x < 3; ++x) {
+    if (strides[x] <= 0 || strides[x] % 16 || strides[x] >= (1ll << 40))
+      return false;
+    gs[x] = (cuuint64_t)strides[x];
+  }
+  const int slot_t = perm & 3;
+  if (slot_t < 1 || slot_t > 3) return false;
+  box[slot_t] = kBK;
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+             gd, gs, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             bw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The last kSlots encoded maps. A call encodes three maps on the host;
+// the model passes views of the same allocations step after step, and a
+// map depends on nothing but encode()'s arguments, so a hit is exact.
+class MapCache {
+ public:
+  bool get(CUtensorMap* map, const void* p, const long long* dims,
+           const long long* strides, int perm, int D) {
+    Key key{p, {dims[0], dims[1], dims[2], dims[3]},
+            {strides[0], strides[1], strides[2]}, perm, D};
+    std::lock_guard<std::mutex> lock(mu_);
+    for (int i = 0; i < used_; ++i)
+      if (keys_[i] == key) {
+        *map = maps_[i];
+        return true;
+      }
+    if (!encode(map, p, dims, strides, perm, D)) return false;
+    keys_[next_] = key;
+    maps_[next_] = *map;
+    next_ = (next_ + 1) % kSlots;
+    if (used_ < kSlots) ++used_;
+    return true;
+  }
+
+ private:
+  static constexpr int kSlots = 64;
+  struct Key {
+    const void* p;
+    long long dims[4], strides[3];
+    int perm, D;
+    bool operator==(const Key& o) const {
+      for (int x = 0; x < 4; ++x)
+        if (dims[x] != o.dims[x] || (x < 3 && strides[x] != o.strides[x]))
+          return false;
+      return p == o.p && perm == o.perm && D == o.D;
+    }
+  };
+  std::mutex mu_;
+  Key keys_[kSlots];
+  CUtensorMap maps_[kSlots];
+  int used_ = 0, next_ = 0;
+};
+MapCache map_cache;
+
+template <int D, bool kCausal>
+int launch_body(const CUtensorMap (&maps)[3], const int (&perm)[3], int B,
+                int H, int T, const float* bias, const float* mask,
+                float scale, const Out& out, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D>(T);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  static tt::KernelFacts facts;
+  const cudaError_t err = facts.allow_smem(
+      reinterpret_cast<const void*>(attn_kernel<D, kCausal>));
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
+  attn_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], perm[0], perm[1], perm[2], T, bias, mask,
+      scale, out);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const CUtensorMap (&maps)[3], const int (&perm)[3], int B, int H,
+           int T, const float* bias, const float* mask, float scale,
+           int causal, const Out& out, cudaStream_t stream) {
+  return causal ? launch_body<D, true>(maps, perm, B, H, T, bias, mask,
+                                       scale, out, stream)
+                : launch_body<D, false>(maps, perm, B, H, T, bias, mask,
+                                        scale, out, stream);
+}
+
+// The fused-qkv body of B and C at head width 64: one 3-D map (channels,
+// T, B) over the whole qkv, a K or V tile the box at the part's channel
+// offset; the bias window is staged once and read a score at a time, the
+// scores times log2 e after the sum. It is the generic body's design at
+// D = 64; on an H100 it runs B and C 3-10% faster than attn_kernel<64>
+// (PERF.md), so they keep it at that width.
+constexpr int kD = 64;
+constexpr int kTile = kBK * kD;    // bf16 elements of one 64 x 64 tile
+constexpr unsigned kTileBytes = kTile * 2;
+constexpr int kOffQ = 0;                           // 2 x 64 query rows
+constexpr int kOffK = kOffQ + 2 * kTile * 2;       // kStages K tiles
+constexpr int kOffV = kOffK + kStages * kTile * 2; // kStages V tiles
+constexpr int kOffBar = kOffV + kStages * kTile * 2;
+constexpr int kOffF32 = kOffBar + 128;             // bias window, mask
+
 template <bool kCausal>
 __global__ void __launch_bounds__(kThreads, 2)
-attn_kernel(const __grid_constant__ CUtensorMap qkv_map, int T, int H,
+qkv_kernel(const __grid_constant__ CUtensorMap qkv_map, int T, int H,
             int q_off, int k_off, int v_off, int head_stride,
             const float* __restrict__ bias,
             const float* __restrict__ mask, float scale,
@@ -195,7 +641,7 @@ attn_kernel(const __grid_constant__ CUtensorMap qkv_map, int T, int H,
   const int g = lane >> 2, tg = lane & 3;
   const int r0 = i0 + wg * 64 + warp * 16 + g;
   const int wg_last = i0 + wg * 64 + 63;  // last row of the warpgroup
-  const uint64_t dq = sw128_desc(qs + wg * kTile);
+  const uint64_t dq = smem_desc<kD>(qs + wg * kTile);
 
   float o[32];
 #pragma unroll
@@ -208,13 +654,13 @@ attn_kernel(const __grid_constant__ CUtensorMap qkv_map, int T, int H,
     tt::mbar_wait(&full[st], (t / kStages) & 1);
     if (!kCausal || j0 <= wg_last) {
       float s[32];
-      const uint64_t dk = sw128_desc(ks + st * kTile);
+      const uint64_t dk = smem_desc<kD>(ks + st * kTile);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // over the head width, 16 at a time
         wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       fence_regs(s);
 
       float mx[2] = {-INFINITY, -INFINITY};
@@ -253,14 +699,14 @@ attn_kernel(const __grid_constant__ CUtensorMap qkv_map, int T, int H,
         // (row half) + 2 * (second 8 keys of the step)
         pa[i >> 3][half + 2 * ((i >> 2) & 1)] = pack_bf16(p0, p1);
       }
-      const uint64_t dv = sw128_desc(vs + st * kTile);
+      const uint64_t dv = smem_desc<kD>(vs + st * kTile);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // over the tile's keys, 16 at a time
-        wgmma_rs_tb(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
+        wgmma_rs(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
       wgmma_commit();
-      wgmma_wait0();
+      wgmma_wait<0>();
       fence_regs(o);
     }
     __syncwarp();
@@ -283,16 +729,17 @@ attn_kernel(const __grid_constant__ CUtensorMap qkv_map, int T, int H,
   }
 }
 
-size_t smem_bytes(int T) {
+size_t qkv_smem_bytes(int T) {
   const int tpad = (T + kBK - 1) / kBK * kBK;
   return 1024 + kOffF32 + sizeof(float) * (2 * tpad + kBQ);
 }
 
 template <bool kCausal>
-int launch(const void* qkv, int B, int T, int H, int D, int q_off, int k_off,
-           int v_off, int head_stride, const float* bias, const float* mask, float scale,
-           void* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes(T);
+int launch_qkv(const void* qkv, int B, int T, int H, int D, int q_off,
+               int k_off, int v_off, int head_stride, const float* bias,
+               const float* mask, float scale, void* out,
+               cudaStream_t stream) {
+  const size_t smem = qkv_smem_bytes(T);
   if (D != kD || B < 1 || T < 1 || H < 1 || smem > 232448 ||
       reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(out) % 4)
     return (int)cudaErrorInvalidValue;
@@ -309,18 +756,55 @@ int launch(const void* qkv, int B, int T, int H, int D, int q_off, int k_off,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<kCausal>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  static tt::KernelFacts facts;
+  const cudaError_t err = facts.allow_smem(
+      reinterpret_cast<const void*>(qkv_kernel<kCausal>));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  attn_kernel<kCausal><<<grid, kThreads, smem, stream>>>(
+  qkv_kernel<kCausal><<<grid, kThreads, smem, stream>>>(
       map, T, H, q_off, k_off, v_off, head_stride, bias, mask, scale,
       static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// Kernels B, C and D1 (bf16) on the generic body. q, k, v: (B, H, T, D)
+// bf16 views, d contiguous, each 16-byte aligned; geom[24] = for q, k, v
+// in turn: dims[4] (D, then T, H, B in their map order), byte strides[3]
+// of map dims 1..3, and perm (the map slots of t, h, b, 2 bits each);
+// ostr[3] = element strides of (b, h, t) of the bf16 output (d
+// contiguous, 4-byte pairs). bias (H, 2T-1) f32 Toeplitz vector or null
+// (null when causal: C has none); mask (B, T) f32 additive or null.
+TT_EXPORT int tt_flash_tma(const void* q, const void* k, const void* v,
+                           void* out, const long long* geom,
+                           const long long* ostr, int B, int H, int T, int D,
+                           const float* bias, const float* mask, float scale,
+                           int causal, cudaStream_t stream) {
+  if (B < 1 || H < 1 || T < 1 || B > 65535 || H > 65535 || (causal && bias) ||
+      reinterpret_cast<uintptr_t>(out) % 4 || ostr[0] % 2 || ostr[1] % 2 ||
+      ostr[2] % 2)
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[3] = {q, k, v};
+  CUtensorMap maps[3];
+  int perm[3];
+  for (int x = 0; x < 3; ++x) {
+    const long long* gx = geom + 8 * x;
+    perm[x] = (int)gx[7];
+    if (!map_cache.get(&maps[x], ptrs[x], gx, gx + 4, perm[x], D))
+      return (int)cudaErrorInvalidValue;
+  }
+  const Out o{static_cast<__nv_bfloat16*>(out), {ostr[0], ostr[1], ostr[2]}};
+  switch (D) {
+    case 32: return launch<32>(maps, perm, B, H, T, bias, mask, scale, causal,
+                               o, stream);
+    case 64: return launch<64>(maps, perm, B, H, T, bias, mask, scale, causal,
+                               o, stream);
+    case 128: return launch<128>(maps, perm, B, H, T, bias, mask, scale,
+                                 causal, o, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // Kernel B. qkv (B, T, 3*H*D) bf16 interleaved per head, 16-byte aligned;
 // bias (H, 2T-1) f32 or null; mask (B, T) f32 additive or null; out
@@ -329,7 +813,7 @@ int launch(const void* qkv, int B, int T, int H, int D, int q_off, int k_off,
 TT_EXPORT int tt_flash_packed(const void* qkv, int B, int T, int H, int D,
                               const float* bias, const float* mask,
                               float scale, void* out, cudaStream_t stream) {
-  return launch<false>(qkv, B, T, H, D, 0, kD, 2 * kD, 3 * kD, bias, mask,
+  return launch_qkv<false>(qkv, B, T, H, D, 0, kD, 2 * kD, 3 * kD, bias, mask,
                        scale, out, stream);
 }
 
@@ -339,6 +823,6 @@ TT_EXPORT int tt_flash_packed(const void* qkv, int B, int T, int H, int D,
 TT_EXPORT int tt_flash_causal_qkv(const void* qkv, int B, int S, int H, int D,
                                   const float* mask, float scale, void* out,
                                   cudaStream_t stream) {
-  return launch<true>(qkv, B, S, H, D, 0, H * kD, 2 * H * kD, kD, nullptr,
+  return launch_qkv<true>(qkv, B, S, H, D, 0, H * kD, 2 * H * kD, kD, nullptr,
                       mask, scale, out, stream);
 }

@@ -1,7 +1,11 @@
 // Exact-softmax attention over strided (B, H, T, D) views (kernels D1, D2).
 //
 // Replaces tortoise_tpu/ops/pallas/flash_attention.py::flash_attention,
-// both of its bodies:
+// both of its bodies. D1's bf16 work at head widths 32, 64 and 128 runs
+// on the wgmma + TMA body of flash_attention.cu; what stays here is D2's
+// generic modes (causal on the (B, H, T, D) API, a materialized bias, f32
+// output), every f32 input (the FMA body), and head width 16 (the tiny
+// configs) on the mma.sync body:
 //   D1 _grouped_flash / _attn_kernel_rowblock — non-causal, square, T5
 //      band + far-field bias (the diffusion fallback when the packed
 //      kernel cannot take the head layout); output in q's dtype;
@@ -313,11 +317,19 @@ int launch(const Args& a, int B, int in_bf16, int out_bf16,
       return (int)cudaErrorInvalidValue;
     const dim3 grid((a.Tq + kBQ - 1) / kBQ, a.H, B);
     const bool general = a.causal || a.bias_full;
-    if (out_bf16 && general)
-      attn_mma<D, __nv_bfloat16, true><<<grid, kThreads, 0, stream>>>(a);
-    else if (out_bf16)
-      attn_mma<D, __nv_bfloat16, false><<<grid, kThreads, 0, stream>>>(a);
-    else if (general)
+    if (out_bf16) {
+      // bf16 output at head width 16 only: B and D1 there (a Toeplitz
+      // bias) and C (causal); at widths 32-128 flash_attention.cu's
+      // generic body takes them
+      if constexpr (D == 16) {
+        if (general)
+          attn_mma<D, __nv_bfloat16, true><<<grid, kThreads, 0, stream>>>(a);
+        else
+          attn_mma<D, __nv_bfloat16, false><<<grid, kThreads, 0, stream>>>(a);
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
+    } else if (general)
       attn_mma<D, float, true><<<grid, kThreads, 0, stream>>>(a);
     else
       attn_mma<D, float, false><<<grid, kThreads, 0, stream>>>(a);
@@ -333,9 +345,9 @@ int launch(const Args& a, int B, int in_bf16, int out_bf16,
 
 // Kernels D1/D2. q (B, H, Tq, D), k and v (B, H, Tkv, D) as strided views
 // (d contiguous), all bf16 or all f32; strides[12] = element strides of
-// (b, h, t) for q, k, v, out; out (B, H, Tq, D) in bf16 (out_bf16, bf16
-// inputs only) or f32. bias_vec (H, Tq + Tkv - 1), bias_full (H, Tq, Tkv)
-// and mask (B, Tkv) are f32 or null.
+// (b, h, t) for q, k, v, out; out (B, H, Tq, D) in bf16 (out_bf16: bf16
+// inputs at head width 16) or f32. bias_vec (H, Tq + Tkv - 1), bias_full
+// (H, Tq, Tkv) and mask (B, Tkv) are f32 or null.
 TT_EXPORT int tt_flash_bhtd(const void* q, const void* k, const void* v,
                             void* out, const long long* strides, int B, int H,
                             int Tq, int Tkv, int D, int in_bf16, int out_bf16,

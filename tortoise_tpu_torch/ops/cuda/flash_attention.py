@@ -10,10 +10,7 @@ C ``flash_attention_causal_qkv`` replaces
 causal attention with key validity over the AR trunk's part-major qkv
 (c = part*H*D + h*D + d).
 
-Both return the merged context (B, T, H*D) in qkv's dtype. Their CUDA
-kernel (``csrc/flash_attention.cu``) is built for head width 64; at the
-other widths the JAX package routes to them (16, 32, 128) they hand
-strided views of the same qkv to kernel D.
+Both return the merged context (B, T, H*D) in qkv's dtype.
 
 D ``flash_attention`` replaces
 ``tortoise_tpu/ops/pallas/flash_attention.py::flash_attention`` over
@@ -21,15 +18,22 @@ D ``flash_attention`` replaces
 body (``bias_formula``, non-causal, equal query and key lengths; output
 in q's dtype), and D2, the generic body (no bias, a materialized
 (H, Tq, Tkv) bias, ``bias_buckets`` + table, or the formula bias when
-causal or ragged; optional causal flag; output f32). Its CUDA kernel
-(``csrc/flash_attention_bhtd.cu``) reads q, k, v and writes the output
-through (b, h, t) strides, so views of a fused qkv need no copy, and
-takes head width 16, 32, 64 or 128.
+causal or ragged; optional causal flag; output f32).
+
+Two CUDA sources carry them (``attention_body`` picks one per call):
+- ``csrc/flash_attention.cu``, on wgmma + TMA: its generic body takes D1's
+  bf16 work at head widths 32, 64 and 128 and B and C at 32 and 128,
+  reading each of q, k, v through a tensor map of its own strided view
+  (``tma_layout``), so views of a fused qkv need no copy, and writing the
+  output through (b, h, t) strides into (B, T, H, D) memory; B and C at
+  width 64 run its fused-qkv body (one map over the whole qkv).
+- ``csrc/flash_attention_bhtd.cu``: D2's modes, f32 inputs (an FMA body)
+  and head width 16 (an ``mma.sync`` body), over (b, h, t) strides.
 
 The kernels walk the keys in shared-memory tiles with an online softmax,
 so the (T, T) scores never reach device memory; they are bound by the
-~4*T*T*D multiply-adds per (batch, head), which run on the tensor cores
-(``mma.sync`` bf16, f32 sums) for bf16 inputs.
+~4*T*T*D multiply-adds per (batch, head) on the tensor cores and, at
+head width 32, by the T*T exps.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the kernel (and
@@ -52,7 +56,9 @@ from tortoise_tpu_torch.ops.cuda import build
 from tortoise_tpu_torch.ops.relpos import bucket_of_delta
 
 NEG_INF = -1e30
-HEAD_WIDTHS = (16, 32, 64, 128)  # kernel D's templates
+HEAD_WIDTHS = (16, 32, 64, 128)  # flash_attention_bhtd.cu's templates
+TMA_WIDTHS = (32, 64, 128)  # flash_attention.cu's (the wgmma + TMA body)
+TMA_ROWS = 64  # rows of t in one tensor-map box (a K/V tile)
 
 
 def _additive_mask(kv_valid: Optional[torch.Tensor]):
@@ -199,7 +205,8 @@ def flash_attention_packed(qkv: torch.Tensor, n_head: int,
     """Kernel B. qkv (B, T, 3*H*D) per-head interleaved; kv_valid (B, T)
     bool or None; the bias from a (NB, H) bucket table or a prebuilt
     (H, 2T-1) ``bias_vec``. Returns (B, T, H*D) in qkv's dtype. On a card
-    a head width other than 64 runs kernel D1 on strided views."""
+    head width 64 runs the fused-qkv body, 32 and 128 the generic wgmma +
+    TMA body on strided views of qkv, 16 kernel D1."""
     t = qkv.shape[1]
     if bias_vec is None and bias_table is not None:
         bias_vec = relpos_bias_vector(bias_table, t, bias_scale,
@@ -209,23 +216,28 @@ def flash_attention_packed(qkv: torch.Tensor, n_head: int,
     qkv, d = _check_cuda_qkv(qkv, n_head)
     b = qkv.shape[0]
     out = torch.empty((b, t, n_head * d), dtype=qkv.dtype, device=qkv.device)
-    bias = None if bias_vec is None else bias_vec.to(
-        device=qkv.device, dtype=torch.float32).contiguous()
-    if bias is not None and tuple(bias.shape) != (n_head, 2 * t - 1):
-        raise ValueError(f"bias_vec must be ({n_head}, {2 * t - 1})")
     mask = _device_mask(kv_valid, b, t, qkv.device)
-    if d != 64:
-        q, k, v = _split_packed(qkv, n_head)
-        _grouped_flash(q, k, v, out.view(b, t, n_head, d).transpose(1, 2),
-                       bias, None, mask, False, float(d) ** -0.5)
+    body = attention_body(qkv.dtype, d, "B")
+    if body == "qkv":
+        bias = None if bias_vec is None else bias_vec.to(
+            device=qkv.device, dtype=torch.float32).contiguous()
+        if bias is not None and tuple(bias.shape) != (n_head, 2 * t - 1):
+            raise ValueError(f"bias_vec must be ({n_head}, {2 * t - 1})")
+        build.check(build.library().tt_flash_packed(
+            qkv.data_ptr(), b, t, n_head, d,
+            None if bias is None else bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), float(d) ** -0.5,
+            out.data_ptr(), build.stream_ptr()), "tt_flash_packed")
+        flash_attention_packed.launches += 1
         return out
-    lib = build.library()
-    build.check(lib.tt_flash_packed(
-        qkv.data_ptr(), b, t, n_head, d,
-        None if bias is None else bias.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        1.0 / float(d) ** 0.5, out.data_ptr(), build.stream_ptr()),
-        "tt_flash_packed")
+    q, k, v = _split_packed(qkv, n_head)
+    out_bhtd = out.view(b, t, n_head, d).transpose(1, 2)
+    if body == "mma":
+        _grouped_flash(q, k, v, out_bhtd, bias_vec, None, mask, False,
+                       float(d) ** -0.5)
+        return out
+    _launch_tma(q, k, v, out_bhtd, bias_vec, mask, False, float(d) ** -0.5,
+                "tt_flash_tma (B)")
     flash_attention_packed.launches += 1
     return out
 
@@ -237,25 +249,31 @@ def flash_attention_causal_qkv(qkv: torch.Tensor, n_head: int,
                                kv_valid: Optional[torch.Tensor] = None,
                                ) -> torch.Tensor:
     """Kernel C. qkv (B, S, 3*H*D) part-major; kv_valid (B, S) bool or
-    None. Returns (B, S, H*D) in qkv's dtype. On a card a head width
-    other than 64 runs kernel D2 (causal) on strided views."""
+    None. Returns (B, S, H*D) in qkv's dtype. On a card head width 64
+    runs the fused-qkv body, 32 and 128 the generic wgmma + TMA body
+    (causal) on strided views of qkv, 16 kernel D2."""
     if not qkv.is_cuda:
         return flash_attention_causal_qkv_plain(qkv, n_head, kv_valid)
     qkv, d = _check_cuda_qkv(qkv, n_head)
     b, s, _ = qkv.shape
     out = torch.empty((b, s, n_head * d), dtype=qkv.dtype, device=qkv.device)
     mask = _device_mask(kv_valid, b, s, qkv.device)
-    if d != 64:
-        q, k, v = _split_part_major(qkv, n_head)
-        _generic_flash(q, k, v, out.view(b, s, n_head, d).transpose(1, 2),
-                       None, None, mask, True, float(d) ** -0.5)
+    body = attention_body(qkv.dtype, d, "C")
+    if body == "qkv":
+        build.check(build.library().tt_flash_causal_qkv(
+            qkv.data_ptr(), b, s, n_head, d,
+            None if mask is None else mask.data_ptr(), float(d) ** -0.5,
+            out.data_ptr(), build.stream_ptr()), "tt_flash_causal_qkv")
+        flash_attention_causal_qkv.launches += 1
         return out
-    lib = build.library()
-    build.check(lib.tt_flash_causal_qkv(
-        qkv.data_ptr(), b, s, n_head, d,
-        None if mask is None else mask.data_ptr(),
-        1.0 / float(d) ** 0.5, out.data_ptr(), build.stream_ptr()),
-        "tt_flash_causal_qkv")
+    q, k, v = _split_part_major(qkv, n_head)
+    out_bhtd = out.view(b, s, n_head, d).transpose(1, 2)
+    if body == "mma":
+        _generic_flash(q, k, v, out_bhtd, None, None, mask, True,
+                       float(d) ** -0.5)
+        return out
+    _launch_tma(q, k, v, out_bhtd, None, mask, True, float(d) ** -0.5,
+                "tt_flash_tma (C)")
     flash_attention_causal_qkv.launches += 1
     return out
 
@@ -358,10 +376,145 @@ def _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
         build.stream_ptr()), name)
 
 
+def attention_body(dtype: torch.dtype, d: int, route: str) -> str:
+    """The CUDA body that runs an attention call of ``route`` ("B", "C",
+    "D1" or "D2") on (dtype, head width d): "qkv", the fused-qkv body of
+    csrc/flash_attention.cu (bf16 B and C at width 64); "tma", its
+    generic body over strided views (bf16 D1 at widths 32, 64, 128, B and
+    C at 32 and 128); "mma", the mma.sync body of flash_attention_bhtd.cu
+    (D2 in bf16, and width 16); "fma", its f32 body (D1 and D2 on f32
+    inputs). Raises for what no body takes."""
+    if route not in ("B", "C", "D1", "D2"):
+        raise ValueError(f"unknown attention route {route!r}")
+    if d not in HEAD_WIDTHS:
+        raise ValueError(f"kernel {route} takes head width {HEAD_WIDTHS}, "
+                         f"got {d}")
+    if dtype == torch.float32 and route in ("D1", "D2"):
+        return "fma"
+    if dtype != torch.bfloat16:
+        raise ValueError(f"kernel {route} does not take {dtype}")
+    if route == "D2" or d not in TMA_WIDTHS:
+        return "mma"
+    return "qkv" if route in ("B", "C") and d == 64 else "tma"
+
+
+def tma_layout(x: torch.Tensor) -> dict:
+    """The tensor map through which the wgmma + TMA body reads a
+    (B, H, T, D) bf16 view: ``dims`` (D first, then T, H and B sorted by
+    stride; a size-1 dim last), ``strides`` (bytes, of map dims 1-3),
+    ``box`` (min(D, 64) columns by 64 rows of t) and ``perm`` (the map
+    slot, 1-3, of t, h and b in bits 0-1, 2-3, 4-5). Raises ValueError
+    for a view TMA cannot read: d not contiguous, a base address or a
+    stride that is not a multiple of 16 bytes, dims that overlap in
+    memory, or a head width the body does not take."""
+    if x.dim() != 4 or x.dtype != torch.bfloat16:
+        raise ValueError(f"want a (B, H, T, D) bf16 view, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"base address {x.data_ptr():#x} is not 16-byte "
+                         f"aligned")
+    return _view_layout(tuple(x.shape), x.stride())
+
+
+@functools.lru_cache(maxsize=256)
+def _view_layout(shape: tuple, stride: tuple) -> dict:
+    """tma_layout of a bf16 view of this shape and strides (a view's
+    layout is asked for at every call; the model's are few)."""
+    b, h, t, d = shape
+    if d not in TMA_WIDTHS:
+        raise ValueError(f"the TMA body takes head width {TMA_WIDTHS}, "
+                         f"got {d}")
+    es = 2  # bf16
+    if stride[3] != 1:
+        raise ValueError("d is not contiguous")
+    named = (("t", t, stride[2]), ("h", h, stride[1]), ("b", b, stride[0]))
+    big = sorted((n for n in named if n[1] > 1), key=lambda n: n[2])
+    order = [n[0] for n in big] + [n[0] for n in named if n[1] == 1]
+    dims, strides, span = [d], [], d * es  # span: bytes the dims cover
+    for _, size, stride in big:
+        sb = stride * es
+        if sb % 16:
+            raise ValueError(f"stride {sb} bytes is not a multiple of 16")
+        if sb < span:
+            raise ValueError("dims overlap in memory")
+        dims.append(size)
+        strides.append(sb)
+        span = sb * size
+    while len(dims) < 4:  # size-1 dims: any stride past the others
+        dims.append(1)
+        strides.append(span)
+    box = [min(d, 64), 1, 1, 1]
+    box[order.index("t") + 1] = TMA_ROWS
+    perm = sum((order.index(n) + 1) << (2 * i) for i, n in enumerate("thb"))
+    return dict(dims=tuple(dims), strides=tuple(strides), box=tuple(box),
+                perm=perm)
+
+
+def _tma_operand(x):
+    """(x or a contiguous copy of it, its tma_layout): a view TMA cannot
+    read is copied."""
+    try:
+        return x, tma_layout(x)
+    except ValueError:
+        if x.dim() != 4 or x.dtype != torch.bfloat16 or \
+                x.shape[-1] not in TMA_WIDTHS:
+            raise
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x, tma_layout(x)
+
+
+def _launch_tma(q, k, v, out, bias_vec, mask, causal, scale, name):
+    """The wgmma + TMA body on (B, H, T, D) bf16 q, k, v into the bf16
+    (B, H, T, D) view ``out`` (d contiguous); bias_vec (H, 2T-1), mask
+    (B, T) additive, both f32 or None."""
+    b, h, t, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} and out {tuple(out.shape)} "
+                         f"differ")
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v, out)):
+        raise ValueError("the TMA body takes bf16 q, k, v and output")
+    if out.stride(3) != 1:
+        raise ValueError("the output's d must be contiguous")
+    geom = []
+    ops = []
+    for x in (q, k, v):
+        x, lay = _tma_operand(x)
+        ops.append(x)
+        geom += [*lay["dims"], *lay["strides"], lay["perm"]]
+    dev = q.device
+    if bias_vec is not None:
+        bias_vec = bias_vec.to(device=dev, dtype=torch.float32).contiguous()
+        if tuple(bias_vec.shape) != (h, 2 * t - 1):
+            raise ValueError(f"Toeplitz bias must be ({h}, {2 * t - 1})")
+    if mask is not None:
+        mask = mask.to(dev).expand(b, t).contiguous()
+    geom = (ctypes.c_longlong * 24)(*geom)  # alive until the call returns
+    ostr = (ctypes.c_longlong * 3)(*out.stride()[:3])
+    lib = build.library()
+    build.check(lib.tt_flash_tma(
+        *(x.data_ptr() for x in ops), out.data_ptr(),
+        ctypes.addressof(geom), ctypes.addressof(ostr), b, h, t, d,
+        None if bias_vec is None else bias_vec.data_ptr(),
+        None if mask is None else mask.data_ptr(), scale, int(causal),
+        build.stream_ptr()), name)
+
+
 def _grouped_flash(q, k, v, out, bias_vec, bias_full, mask, causal, scale):
-    """Kernel D1 (the grouped band-bias body) into ``out``."""
-    _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
-              "tt_flash_bhtd (D1)")
+    """Kernel D1 (the grouped band-bias body) into ``out``: bf16 at head
+    width 32, 64 or 128 on the wgmma + TMA body, else on
+    flash_attention_bhtd.cu."""
+    if attention_body(q.dtype, q.shape[-1], "D1") == "tma":
+        if bias_full is not None or causal or k.shape[2] != q.shape[2]:
+            raise ValueError("kernel D1 is non-causal, Tq == Tkv, with a "
+                             "Toeplitz bias")
+        _launch_tma(q, k, v, out, bias_vec, mask, False, scale,
+                    "tt_flash_tma (D1)")
+    else:
+        _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
+                  "tt_flash_bhtd (D1)")
     _grouped_flash.launches += 1
 
 
