@@ -13,14 +13,15 @@ Phases (any failure exits nonzero before the result line):
    its plain PyTorch version at the shapes the main paths give it, with
    the stated tolerance (2e-2 relative for bf16 outputs, 1e-4 for E's
    f32), and the time of both (CUDA events, after warm-up); D1 also
-   against kernel B on one qkv, and B and C at head width 128; the
+   against kernel B on one qkv, and B and C at head width 128 (B there
+   timed with its plain version, SDPA and bound); the
    serving shapes: A on ragged rows at B = 4 and 16, B at a stream
    window (8, 384) and on a batch's ragged CFG rows; D1 at a ragged
    T = 1000 and on a server batch's 16 CFG rows; E per hop at L = 2208
    and at a 32-frame chunk (timed), at a ragged L = 2186 and on two
    batch rows of stacked kernels;
 4. end to end at full production width (random weights, bf16 + int8,
-   stand-in tokens), five requests, each with the launch counts set to 0
+   stand-in tokens), six requests, each with the launch counts set to 0
    before it and read after it: request 1 through the CLI at
    --batch-size 1 must launch kernels A and B, request 2 at --batch-size
    8 must also launch kernel C (the latent pass); request 3, synthesize()
@@ -29,8 +30,12 @@ Phases (any failure exits nonzero before the result line):
    concurrent POST /synthesize to the HTTP server, must form one batch
    padded to 8 and launch A, B and C; request 5, one POST /stream on the
    fused-LVC vocoder, must launch A, B and E and stream the one-shot
-   length; the audio must be finite and of the vocoder's length for its
-   mel;
+   length; request 6, a fresh process that memory-maps the int8 plane
+   the parent wrote (io/plane_cache.py) and synthesizes at request 1's
+   settings, must give request 1's tokens and audio (rel 1e-3; expect
+   bit-equal) and launch A and B; the audio must be finite and of the
+   vocoder's length for its mel. Then the parity runner's dry run: 3 SKIP
+   and exit 0 without weights, exit 1 on a corrupt vocoder file;
 5. small-input agreement: the tiny f32 parity plane on the card against
    the same run on the CPU (same tokens, mel and audio within tolerance),
    on the default configs and on the fallback + fused-LVC configs; then
@@ -788,11 +793,21 @@ def check_wide_heads(torch):
     qkv = bf16_qkv(torch, g, b, t, 8, 128)
     bias_vec = K.relpos_bias_vector(
         torch.randn((32, 8), generator=g, device=dev) * 0.3, t)
-    _check(torch, f"B at 8 heads of 128 ({b}, {t})",
-           K.flash_attention_packed(qkv, 8, bias_vec=bias_vec),
+    out = K.flash_attention_packed(qkv, 8, bias_vec=bias_vec)
+    _check(torch, f"B at 8 heads of 128 ({b}, {t})", out,
            K.flash_attention_packed_plain(qkv, 8, None, bias_vec), 2e-2, 0.0)
     ms_b = cuda_ms(torch, lambda: K.flash_attention_packed(
         qkv, 8, bias_vec=bias_vec))
+    plain_b = cuda_ms(torch, lambda: K.flash_attention_packed_plain(
+        qkv, 8, None, bias_vec), iters=3)
+    q, k, v = views(qkv, 8, 128)
+    lib_b = sdpa_ms(torch, q, k, v, K._toeplitz_full(bias_vec, t, t)[None],
+                    f"B128 ({b}, {t})")
+    b128 = bound(nbytes(qkv, bias_vec, out), flops=4.0 * b * 8 * t * t * 128,
+                 exps=float(b * 8 * t * t))
+    print(f"  B128 ({b}, {t}) x 8 heads of 128: kernel {ms_b:.3f} ms, plain "
+          f"{plain_b:.3f} ms, SDPA {lib_b:.3f} ms, bound "
+          f"{b128['bound_ms']:.4f} ms ({b128['bound_by']})")
     qkv = bf16_qkv(torch, g, bc, s, 8, 128)
     valid = torch.ones((bc, s), dtype=torch.bool, device=dev)
     valid[:, 31:33] = False
@@ -867,12 +882,14 @@ def check_kernel_e(torch, results):
 
 
 def run_request(torch, batch_size: int, out_dir: str, smi: str):
+    """The CLI at full width (requests 1 and 2); returns its
+    SynthesisResult."""
     from tortoise_tpu_torch import cli
     from tortoise_tpu_torch.pipeline.vocoder_stage import audio_length
 
     out = os.path.join(out_dir, f"request_b{batch_size}.wav")
     argv = ["--random-weights", "--bf16", "--int8-weights", "--seed", "0",
-            "--batch-size", str(batch_size), "--tokens",
+            "--no-progress", "--batch-size", str(batch_size), "--tokens",
             ",".join(map(str, STANDIN_TOKENS)), "--output", out]
     t0 = time.monotonic()
     res = cli.run(argv)
@@ -898,6 +915,7 @@ def run_request(torch, batch_size: int, out_dir: str, smi: str):
           f"ms/step, diffusion "
           f"{t['diffusion_loop_s'] / t['diffusion_steps'] * 1e3:.3f} "
           f"ms/CFG-step [{smi}]")
+    return res
 
 
 # request 3's configuration: the diffusion fallback (32 heads of 32, so
@@ -1293,13 +1311,186 @@ def check_small_serving_agreement(torch):
           collect_stream(streams["cuda"]), collect_stream(streams["cpu"]))
 
 
+# request 6: a fresh process synthesizes from the int8 plane on disk
+WARM_AUDIO_TOL = 1e-3  # relative to request 1's max |audio|; expect 0
+
+
+def write_warm_plane(plane_dir) -> dict:
+    """The int8 plane of TortoiseModels.random(0) at full width: AR pairs
+    by quantize_ar_host, diffusion pairs by the host quantizer, the
+    vocoder in f32. Returns the host walls and the plane's bytes."""
+    from tortoise_tpu_torch.io.plane_cache import save_plane
+    from tortoise_tpu_torch.pipeline.ar_stage import quantize_ar_host
+    from tortoise_tpu_torch.pipeline.diffusion_stage import (
+        quantize_diffusion_weights,
+    )
+    from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels
+
+    models = TortoiseModels.random(0)
+    t0 = time.monotonic()
+    tree = {"ar": quantize_ar_host(models.ar_params),
+            "diffusion": quantize_diffusion_weights(models.diffusion_params),
+            "vocoder": models.vocoder_params}
+    quantize_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    save_plane(tree, plane_dir)
+    save_s = time.monotonic() - t0
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(plane_dir) for f in fs)
+    return dict(quantize_s=quantize_s, save_s=save_s, bytes=size)
+
+
+def warm_start_child(plane_dir, wav_path, t_spawn) -> int:
+    """The fresh process of request 6: load the plane memory-mapped, build
+    TortoiseModels from it, synthesize at request 1's settings (stand-in
+    tokens, zero voice, seed 0, one candidate, bf16 + int8, kernel B in
+    the denoiser), write the WAV, print one JSON line."""
+    t_main = time.time()
+    sys.path.insert(0, ROOT)
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tortoise_tpu_torch.config import DiffusionConfig
+    from tortoise_tpu_torch.io.plane_cache import load_plane
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tortoise_tpu_torch.pipeline.synthesize import (
+        TortoiseModels,
+        synthesize,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's phase 1
+    torch.backends.cudnn.allow_tf32 = False
+    t_imported = time.time()
+    t0 = time.monotonic()
+    tree = load_plane(plane_dir, mmap=True)
+    load_s = time.monotonic() - t0
+    if tree is None:
+        fail(f"request 6: no plane at {plane_dir}")
+    models = TortoiseModels(
+        ar_params=tree["ar"], diffusion_params=tree["diffusion"],
+        vocoder_params=tree["vocoder"],
+        diffusion_cfg=dataclasses.replace(DiffusionConfig(), use_flash=True))
+    reset_launch_counts()
+    res = synthesize(models, tokens=STANDIN_TOKENS,
+                     voice=np.zeros((1024,), np.float32), seed=0,
+                     batch_size=1, compute_dtype=torch.bfloat16,
+                     int8_weights=True, device="cuda")
+    res.save(wav_path)
+    t_wav = time.time()
+    launches = launch_counts()
+    jax_pkg = "tortoise_tpu"
+    print(json.dumps({"warm_start": dict(
+        sequences=res.sequences, launches=launches, load_s=load_s,
+        timings=res.timings, imports_s=t_imported - t_main,
+        start_to_main_s=t_main - t_spawn, wall_s=t_wav - t_spawn,
+        jaxy=sorted(k for k in sys.modules
+                    if k in ("jax", jax_pkg)
+                    or k.startswith(("jax.", "jaxlib", jax_pkg + "."))))}),
+          flush=True)
+    return 0
+
+
+def run_request_6(smi, req1) -> dict:
+    """Warm start: the parent writes the int8 plane into a git-ignored
+    directory of the checkout, a fresh process loads it and synthesizes
+    at request 1's settings, and its tokens, audio and launches are held
+    against request 1's. Returns the child's launch counts."""
+    import shutil
+
+    import numpy as np
+
+    from tortoise_tpu_torch.io.wav import read_wav
+
+    base = os.path.join(ROOT, "_plane_cache")
+    os.makedirs(base, exist_ok=True)
+    work = tempfile.mkdtemp(dir=base)
+    try:
+        plane = os.path.join(work, "plane")
+        written = write_warm_plane(plane)
+        wav = os.path.join(work, "warm.wav")
+        t_spawn = time.time()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__),
+             "--warm-start-child", plane, wav, repr(t_spawn)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        spawn_wall = time.time() - t_spawn
+        if proc.returncode != 0:
+            fail(f"request 6: the fresh process exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith('{"warm_start"')]
+        if not line:
+            fail(f"request 6: no result line: {proc.stdout[-2000:]}")
+        child = json.loads(line[-1])["warm_start"]
+        audio, _ = read_wav(wav)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if child["jaxy"]:
+        fail(f"request 6: the fresh process imported {child['jaxy'][:8]}")
+    if child["sequences"] != req1.sequences:
+        fail("request 6: the warm-started tokens differ from request 1's")
+    want = np.asarray(req1.audio, np.float32)
+    if audio.shape != want.shape or not np.isfinite(audio).all():
+        fail(f"request 6: audio {audio.shape}, request 1 {want.shape}")
+    err = float(np.abs(audio - want).max())
+    rel = err / max(float(np.abs(want).max()), 1e-30)
+    print(f"  request 6 (fresh process on the int8 plane): tokens equal "
+          f"request 1's ({len(child['sequences'][0])} ids); audio "
+          f"max_abs_err={err:.3e} rel={rel:.3e} (tol rel {WARM_AUDIO_TOL}; "
+          f"bit-equal: {err == 0.0})")
+    if not rel <= WARM_AUDIO_TOL:
+        fail(f"request 6: audio differs from request 1's: rel {rel}")
+    t, t1 = child["timings"], req1.timings
+    st = {k: round(v, 4) for k, v in t.items()}
+    print(f"  request 6: plane {written['bytes'] / 1e6:.1f} MB written in "
+          f"{written['save_s']:.3f} s (host quantize "
+          f"{written['quantize_s']:.3f} s); child: spawn to main "
+          f"{child['start_to_main_s']:.3f} s, imports {child['imports_s']:.3f} s, load_plane "
+          f"{child['load_s']:.4f} s, ar_cast_s {t['ar_cast_s']:.4f}, "
+          f"diffusion_cast_s {t['diffusion_cast_s']:.4f} (request 1: "
+          f"{t1['ar_cast_s']:.4f}, {t1['diffusion_cast_s']:.4f}); stage "
+          f"walls {st}; process start to WAV {child['wall_s']:.3f} s "
+          f"(parent's wall to exit {spawn_wall:.3f} s) [{smi}]")
+    return child["launches"]
+
+
+def check_parity_dry_run(out_dir) -> None:
+    """python -m tortoise_tpu_torch.parity without weights: 3 SKIP and
+    exit 0; with a corrupt vocoder file: FAIL and exit 1."""
+    empty = os.path.join(out_dir, "parity_empty")
+    bad = os.path.join(out_dir, "parity_bad")
+    os.makedirs(empty)
+    os.makedirs(bad)
+    with open(os.path.join(bad, "ggml-vocoder-model.bin"), "wb") as f:
+        f.write(b"not a ggml file!")
+    for models, want_rc, want in ((empty, 0, "SKIP"), (bad, 1, "FAIL")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "tortoise_tpu_torch.parity", "--models",
+             models], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        n = proc.stdout.count(want)
+        print(f"  parity dry run ({os.path.basename(models)}): exit "
+              f"{proc.returncode}, {n} {want}")
+        if proc.returncode != want_rc or n != (3 if want == "SKIP" else 1):
+            fail(f"parity on {os.path.basename(models)}: exit "
+                 f"{proc.returncode}, want {want_rc}: {proc.stdout[-800:]} "
+                 f"{proc.stderr[-800:]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the kernel checks, profile a decode step "
                          "and a diffusion step with torch.profiler, then "
                          "stop (no result line)")
+    ap.add_argument("--warm-start-child", nargs=3,
+                    metavar=("PLANE", "WAV", "T_SPAWN"),
+                    help=argparse.SUPPRESS)  # request 6's fresh process
     args = ap.parse_args(argv)
+    if args.warm_start_child:
+        plane, wav, t_spawn = args.warm_start_child
+        return warm_start_child(plane, wav, float(t_spawn))
     sys.path.insert(0, ROOT)
     try:
         import torch
@@ -1373,14 +1564,15 @@ def main(argv=None) -> int:
     # after. Kernels every request of its path must launch, and kernels
     # it must not launch:
     needs = {1: ("A", "B"), 2: ("A", "B", "C"), 3: ("A", "D1", "E"),
-             4: ("A", "B", "C"), 5: ("A", "B", "E")}
+             4: ("A", "B", "C"), 5: ("A", "B", "E"), 6: ("A", "B")}
     print("[4/5] end to end at full production width (random weights, "
           "bf16 + int8)", flush=True)
     per_request = {}
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
+        req = {}
         for r, batch_size in ((1, 1), (2, 8)):
             reset_launch_counts()
-            run_request(torch, batch_size, out_dir, smi)
+            req[r] = run_request(torch, batch_size, out_dir, smi)
             per_request[r] = launch_counts()
         reset_launch_counts()
         run_request_3(torch, smi)
@@ -1398,6 +1590,10 @@ def main(argv=None) -> int:
             models.vocoder_cfg, use_pallas_lvc=True))
         per_request[5] = run_request_5(torch, models, smi,
                                        reset_launch_counts, launch_counts)
+        del models
+        # the warm start: its launches are counted in the child
+        per_request[6] = run_request_6(smi, req[1])
+        check_parity_dry_run(out_dir)
     for r, c in per_request.items():
         print(f"  launches, request {r}: {c}")
         for key in needs[r]:

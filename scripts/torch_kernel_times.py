@@ -15,6 +15,15 @@ and power limit, and either a kernel's shape, ``ms`` (device time a
 call: CUDA events over 10 calls queued behind a device sleep, as
 chip_smoke.py times them) and ``host_us`` (the wrapper's host time a
 call: 50 calls enqueued without a sync), or request 3's stage timings.
+
+With --plane-upload N it times request 6's int8 plane instead of the
+kernels: chip_smoke's write_warm_plane writes it under the git-ignored
+_plane_cache/, then one line has the loaded tree's weight casts (the
+first in this process, then again after clear_cast_cache) and one line
+the seconds to put the whole plane on the card three ways, in turns, N
+rounds: a read-only map copied first (what params.tree_to_torch does
+with a read-only array), the copy-on-write map that load_plane gives,
+and a read-only map copied into pinned memory.
 """
 
 from __future__ import annotations
@@ -42,6 +51,76 @@ def host_us(torch, fn, n: int = 50) -> float:
     return (t1 - t0) / n * 1e6
 
 
+def plane_upload(torch, smoke, emit_line, rounds: int) -> None:
+    """Request 6's plane: casts of the loaded tree, then its upload three
+    ways (see the module's docstring)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tortoise_tpu_torch.io.plane_cache import load_plane
+    from tortoise_tpu_torch.pipeline import ar_stage, common, diffusion_stage
+
+    base = os.path.join(HERE, "_plane_cache")
+    os.makedirs(base, exist_ok=True)
+    work = tempfile.mkdtemp(dir=base)
+    try:
+        plane = os.path.join(work, "plane")
+        written = smoke.write_warm_plane(plane)
+        tree = load_plane(plane, mmap=True)
+        casts = {}
+        for turn in ("first", "again"):
+            common.clear_cast_cache()
+            for name, fn in (("ar", lambda: ar_stage.cast_matmul_weights(
+                    tree["ar"], torch.bfloat16, True, "cuda")),
+                    ("diffusion", lambda: diffusion_stage._prepare_params(
+                        tree["diffusion"], True, "cuda"))):
+                t0 = time.monotonic()
+                fn()
+                torch.cuda.synchronize()
+                casts[f"{name}_cast_s_{turn}"] = time.monotonic() - t0
+        common.clear_cast_cache()
+        del tree
+        emit_line(kernel="plane casts", plane_bytes=written["bytes"], **casts)
+        files = [os.path.join(d, f) for d, _, fs in os.walk(plane)
+                 for f in fs if f.endswith(".npy")]
+
+        def copy_first():
+            return [torch.from_numpy(np.load(f, mmap_mode="r").copy())
+                    .to("cuda") for f in files]
+
+        def cow_map():
+            return [torch.from_numpy(np.load(f, mmap_mode="c")).to("cuda")
+                    for f in files]
+
+        def pinned():
+            out = []
+            for f in files:
+                a = np.load(f, mmap_mode="r")
+                h = torch.from_numpy(np.empty(0, a.dtype))
+                h = torch.empty(a.shape, dtype=h.dtype, pin_memory=True)
+                h.numpy()[...] = a
+                out.append(h.to("cuda", non_blocking=True))
+            return out
+
+        ways = {"copy_first": copy_first, "cow_map": cow_map,
+                "pinned": pinned}
+        got = {k: [] for k in ways}
+        for _ in range(rounds):
+            for name, fn in ways.items():
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                leaves = fn()
+                torch.cuda.synchronize()
+                got[name].append(time.monotonic() - t0)
+                del leaves
+                torch.cuda.empty_cache()
+        emit_line(kernel="plane upload", rounds=rounds, **got)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE,
@@ -49,6 +128,9 @@ def main() -> int:
     ap.add_argument("--label", default="this")
     ap.add_argument("--request3", type=int, default=0, metavar="N",
                     help="also run chip_smoke's request 3 N times")
+    ap.add_argument("--plane-upload", type=int, default=0, metavar="N",
+                    help="time request 6's plane (casts, then N rounds of "
+                         "upload three ways) instead of the kernels")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -71,6 +153,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = smoke.smi_line()
+    if args.plane_upload:
+        plane_upload(torch, smoke, lambda **kw: print(json.dumps(dict(
+            label=args.label, card=card, **kw)), flush=True),
+            args.plane_upload)
+        return 0
     g = torch.Generator(device="cuda").manual_seed(11)
 
     def emit(kernel, shape, fn):

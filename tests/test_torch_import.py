@@ -27,7 +27,10 @@ assert {"tortoise_tpu_torch.ops.cuda.lvc",
         "tortoise_tpu_torch.pipeline.streaming",
         "tortoise_tpu_torch.config", "tortoise_tpu_torch.io.checkpoint",
         "tortoise_tpu_torch.text.tokenizer", "tortoise_tpu_torch.rng.reference",
-        "tortoise_tpu_torch.native"} <= set(names), names
+        "tortoise_tpu_torch.native", "tortoise_tpu_torch.io.plane_cache",
+        "tortoise_tpu_torch.convert", "tortoise_tpu_torch.parity",
+        "tortoise_tpu_torch.utils.debug", "tortoise_tpu_torch.utils.profiling",
+        "tortoise_tpu_torch.utils.progress"} <= set(names), names
 """
 
 SERVING_PROBE = """

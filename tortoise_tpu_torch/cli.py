@@ -43,13 +43,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output", default="output.wav", help="output WAV path")
     p.add_argument("--seed", type=int, default=None,
                    help="RNG seed (default: wall clock)")
+    p.add_argument("--no-progress", action="store_true",
+                   help="disable the live diffusion progress bar")
     p.add_argument("--models", default="models",
                    help="directory with ggml-*.bin + tokenizer.json")
+    p.add_argument("--cache-dir", default=None,
+                   help="directory for the converted .npz checkpoint cache")
     p.add_argument("--batch-size", type=int, default=1,
                    help="AR candidate sequences")
     p.add_argument("--sampler", choices=("jax", "reference"), default="jax",
                    help="jax: on-device sampling (torch.Generator); "
                         "reference: mt19937 parity plane")
+    p.add_argument("--tokenizer-method", choices=("greedy", "bpe"),
+                   default="greedy",
+                   help="greedy matches the reference runtime; bpe matches "
+                        "upstream tortoise-tts")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 matmul operands and activations")
     p.add_argument("--int8-weights", action="store_true",
@@ -112,6 +120,16 @@ def _check_modes(args) -> None:
             "reference and --batch-size apply to the one-shot path")
 
 
+def _progress(args):
+    """The diffusion progress callback: a bar on stderr unless
+    --no-progress."""
+    if args.no_progress:
+        return None
+    from tortoise_tpu_torch.utils.progress import progress_bar
+
+    return progress_bar
+
+
 def run(argv=None):
     """Parse ``argv``, synthesize, write the WAV(s), print the walls;
     returns the SynthesisResult (the list of them with --messages-file,
@@ -146,7 +164,7 @@ def run(argv=None):
 
             models.tokenizer = Tokenizer.from_file(tok_path)
     else:
-        models = TortoiseModels.from_ggml_dir(args.models)
+        models = TortoiseModels.from_ggml_dir(args.models, args.cache_dir)
 
     if args.voice is not None:
         voice = args.voice
@@ -182,7 +200,7 @@ def run(argv=None):
                                        args.repetition_penalty)
     kw = dict(voice=voice, seed=args.seed, compute_dtype=compute_dtype,
               int8_weights=args.int8_weights, sampler_params=sampler_params,
-              device=device)
+              tokenizer_method=args.tokenizer_method, device=device)
     if args.messages_file:
         return _run_batch(args, models, kw)
 
@@ -205,7 +223,7 @@ def run(argv=None):
         return _run_stream(args, models, tokens, kw)
     result = synthesize(models, message=args.message, tokens=tokens,
                         batch_size=args.batch_size, sampler=args.sampler,
-                        **kw)
+                        progress=_progress(args), **kw)
     result.save(args.output)
     total = sum(result.timings[k] for k in STAGES)
     dur = len(result.audio) / result.sample_rate
@@ -239,7 +257,8 @@ def _run_batch(args, models, kw):
               file=sys.stderr)
     voice = kw.pop("voice")
     results = synthesize_batch(models, messages=messages,
-                               tokens_list=tokens_list, voices=voice, **kw)
+                               tokens_list=tokens_list, voices=voice,
+                               progress=_progress(args), **kw)
     root, ext = os.path.splitext(args.output)
     for i, r in enumerate(results):
         path = f"{root}-{i}{ext or '.wav'}"

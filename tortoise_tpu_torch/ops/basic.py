@@ -91,6 +91,14 @@ def quantize_cols(w: torch.Tensor):
     return wq.contiguous(), scale.contiguous()
 
 
+def quantize_cols_host(w):
+    """``quantize_cols`` for a host (numpy) weight, on the CPU: numpy
+    pairs, identical to the JAX package's quantize_cols_host (the same
+    f32 math and round-half-even)."""
+    wq, scale = quantize_cols(torch.from_numpy(w))
+    return wq.numpy(), scale.numpy()
+
+
 def layer_norm(x: torch.Tensor, w=None, b=None, eps: float = 1e-5):
     """Population-variance LN over the last axis; w=b=None is the
     reference's bare second norm."""

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from tortoise_tpu_torch.config import ARConfig
 from tortoise_tpu_torch.models import ar
 from tortoise_tpu_torch.ops import sampling as S
-from tortoise_tpu_torch.ops.basic import quantize_cols
+from tortoise_tpu_torch.ops.basic import quantize_cols, quantize_cols_host
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
 from tortoise_tpu_torch.pipeline.common import cached_cast, resolve_device, sync
@@ -79,6 +79,27 @@ def quantize_ar(params) -> dict:
     hp = params.get("head_pack")
     out["head_pack"] = dict(hp) if hp is not None \
         else _build_head_pack(params, out["lm_w"])
+    return out
+
+
+def quantize_ar_host(params) -> dict:
+    """int8-quantize the AR numpy tree's matmul weights on the host (the
+    JAX package's quantize_ar_host pairs, bit for bit) for a plane cache
+    (``io/plane_cache.py``). No head pack is built: ``quantize_ar``
+    builds it on the device from these pairs (one carried in the tree,
+    as the JAX package's planes hold it, passes through). Pairs pass
+    through as tuples."""
+    def q(w):
+        return tuple(w) if isinstance(w, (tuple, list)) \
+            else quantize_cols_host(w)
+
+    blocks = dict(params["blocks"])
+    for k in _MATMUL_WEIGHTS:
+        blocks[k] = q(blocks[k])
+    out = dict(params, blocks=blocks)
+    lm = params["lm_w"]
+    out["lm_w"] = tuple(lm) if isinstance(lm, (tuple, list)) \
+        else quantize_cols_host(np.asarray(lm).T)
     return out
 
 

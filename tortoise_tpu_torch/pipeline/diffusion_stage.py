@@ -26,7 +26,7 @@ import torch
 
 from tortoise_tpu_torch.config import DiffusionConfig, mel_length_for_latents
 from tortoise_tpu_torch.models import diffusion as dmodel
-from tortoise_tpu_torch.ops.basic import quantize_cols
+from tortoise_tpu_torch.ops.basic import quantize_cols, quantize_cols_host
 from tortoise_tpu_torch.ops.relpos import relative_position_buckets
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
@@ -44,21 +44,27 @@ OUT_BUCKET = 64
 
 def quantize_diffusion_weights(params):
     """int8 pairs for the denoiser's hot matmuls (the same tensors, math
-    and pairs as the JAX package's quantize_diffusion_weights), on the
-    tree's device: the stacked layers/integrator/tail qkv, proj and
-    resblock convs, plus the integrating conv, become pre-transposed
-    (w_int8, scale) pairs. Pairs pass through."""
+    and pairs as the JAX package's quantize_diffusion_weights): the
+    stacked layers/integrator/tail qkv, proj and resblock convs, plus the
+    integrating conv, become pre-transposed (w_int8, scale) pairs. Tensor
+    leaves are quantized on their device; numpy leaves on the host
+    (``quantize_cols_host``), giving numpy pairs for a plane cache
+    (``io/plane_cache.py``). Pairs pass through as tuples."""
+    def q(wm):
+        if isinstance(wm, np.ndarray):
+            return quantize_cols_host(wm)
+        return quantize_cols(wm)
+
     def q_lin(w):  # (..., out, in) -> ((..., in, out) int8, scale)
         if isinstance(w, (tuple, list)):
             return tuple(w)
-        return quantize_cols(w.transpose(-1, -2))
+        return q(w.swapaxes(-1, -2))
 
     def q_conv(w):  # (..., out, in, k) -> ((..., k*in, out) int8, scale)
         if isinstance(w, (tuple, list)):
             return tuple(w)
         k, c_in, c_out = w.shape[-1], w.shape[-2], w.shape[-3]
-        wm = w.transpose(-1, -3).reshape(*w.shape[:-3], k * c_in, c_out)
-        return quantize_cols(wm)
+        return q(w.swapaxes(-1, -3).reshape(*w.shape[:-3], k * c_in, c_out))
 
     out = dict(params)
     for group in ("layers", "integrator", "tail"):

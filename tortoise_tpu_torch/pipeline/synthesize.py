@@ -71,23 +71,31 @@ class TortoiseModels:
 
     @classmethod
     def random(cls, seed: int = 0, tiny: bool = False,
+               cache_dir: Optional[str] = None,
                diffusion: Optional[dict] = None,
                vocoder: Optional[dict] = None) -> "TortoiseModels":
         """Synthetic weights with the production (or tiny) tensor
-        inventory, drawn by the JAX package's own ``random_*_params``
-        (float32 stream) — both packages run identical weights.
+        inventory, drawn by the port's copy of ``random_*_params`` (the
+        float32 stream, the same values as the JAX package's).
         ``diffusion`` / ``vocoder`` replace config fields before the
         weights are drawn, e.g. ``diffusion={"n_head": 32,
-        "use_flash": True}`` sizes the rel-pos tables for 32 heads."""
+        "use_flash": True}`` sizes the rel-pos tables for 32 heads.
+        ``cache_dir`` memoizes the host trees as
+        ``{ar,diffusion,vocoder}_{tiny|full}_{seed}.npz``, the JAX
+        package's names and format, so either package loads the other's
+        cache; a tree whose config is overridden is drawn anew and never
+        cached (its shapes may differ from the file's)."""
         from tortoise_tpu_torch.config import (
             tiny_ar_config,
             tiny_diffusion_config,
             tiny_vocoder_config,
         )
         from tortoise_tpu_torch.io.checkpoint import (
+            load_npz,
             random_ar_params,
             random_diffusion_params,
             random_vocoder_params,
+            save_npz,
         )
 
         acfg = tiny_ar_config() if tiny else ARConfig()
@@ -97,11 +105,24 @@ class TortoiseModels:
         vcfg = dataclasses.replace(
             tiny_vocoder_config() if tiny else VocoderConfig(),
             **(vocoder or {}))
+
+        def build(name, fn, cfg, s, overridden=False):
+            if not cache_dir or overridden:
+                return fn(cfg, s, fast=True)
+            path = os.path.join(
+                cache_dir, f"{name}_{'tiny' if tiny else 'full'}_{s}.npz")
+            if os.path.exists(path):
+                return load_npz(path)
+            params = fn(cfg, s, fast=True)
+            save_npz(path, params)
+            return params
+
         return cls(
-            ar_params=random_ar_params(acfg, seed, fast=True),
-            diffusion_params=random_diffusion_params(dcfg, seed + 1,
-                                                     fast=True),
-            vocoder_params=random_vocoder_params(vcfg, seed + 2, fast=True),
+            ar_params=build("ar", random_ar_params, acfg, seed),
+            diffusion_params=build("diffusion", random_diffusion_params,
+                                   dcfg, seed + 1, bool(diffusion)),
+            vocoder_params=build("vocoder", random_vocoder_params, vcfg,
+                                 seed + 2, bool(vocoder)),
             ar_cfg=acfg, diffusion_cfg=dcfg, vocoder_cfg=vcfg,
         )
 
@@ -110,9 +131,9 @@ class TortoiseModels:
 class SynthesisResult:
     audio: np.ndarray
     sample_rate: int
-    mel: np.ndarray
+    mel: Optional[np.ndarray]
     sequences: List[List[int]]
-    latents: List[np.ndarray]
+    latents: List[Optional[np.ndarray]]
     tokens: List[int]
     timings: dict
 
@@ -205,14 +226,17 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
                batch_size: int = 1, sampler: str = "jax", rng=None,
                compute_dtype=None, tokenizer_method: str = "greedy",
                progress=None, int8_weights: bool = False,
-               stage_sync: bool = True, sampler_params=None,
-               device=None) -> SynthesisResult:
-    """Run the full pipeline on ``device`` (default: the first CUDA card,
-    else the CPU). Provide ``message`` (tokenized with the models'
-    tokenizer) or raw wrapped ``tokens``; ``voice`` is a 1024-f32 latent
-    or a path to a voice .bin. Like the reference CLI, the mel and audio
-    come from the first AR candidate. ``stage_sync`` waits for the device
-    at each stage boundary so the stage walls in ``timings`` are true."""
+               stage_sync: bool = True, materialize: bool = True,
+               sampler_params=None, device=None) -> SynthesisResult:
+    """Run the full pipeline on ``device`` (default ``cuda``, which raises
+    without a card; pass ``device="cpu"`` for the CPU). Provide
+    ``message`` (tokenized with the models' tokenizer) or raw wrapped
+    ``tokens``; ``voice`` is a 1024-f32 latent or a path to a voice .bin.
+    Like the reference CLI, the mel and audio come from the first AR
+    candidate. ``stage_sync`` waits for the device at each stage boundary
+    so the stage walls in ``timings`` are true. ``materialize=False``
+    (serving) skips the mel and latent downloads of the device-resident
+    path: ``mel`` is then None and ``latents`` one None per candidate."""
     device = resolve_device(device)
     if tokens is None:
         if models.tokenizer is None:
@@ -236,8 +260,6 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
             int8_weights=int8_weights, return_device_latents=True,
             substage_timings=timings if stage_sync else None,
             sampler_params=sampler_params, device=device)
-        latents = [lat_dev[b, :keeps[b]].float().cpu().numpy()
-                   for b in range(lat_dev.shape[0])]
         timings["autoregressive_s"] = time.monotonic() - t0
         t0 = time.monotonic()
         mel_dev, out_lens = diffusion_stage.diffusion_batch_device(
@@ -252,7 +274,15 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
         audio = vocoder_stage.vocoder_batch_device(
             models.vocoder_params, mel_dev, out_lens, models.vocoder_cfg,
             seed=seed + 2, compute_dtype=compute_dtype, device=device)[0]
-        mel = mel_dev[0, :, :out_lens[0]].float().cpu().numpy()
+        # the downloads stay inside the stage walls, so their sum (RTF)
+        # counts the same host copies as before ``materialize`` existed
+        if materialize:
+            mel = mel_dev[0, :, :out_lens[0]].float().cpu().numpy()
+            latents = [lat_dev[b, :keeps[b]].float().cpu().numpy()
+                       for b in range(lat_dev.shape[0])]
+        else:
+            mel, latents = None, [None] * lat_dev.shape[0]
+        timings["vocoder_s"] = time.monotonic() - t0
     else:
         latents, sequences = ar_stage.autoregressive(
             models.ar_params, tokens, voice, batch_size, models.ar_cfg,
@@ -270,7 +300,7 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
         audio = vocoder_stage.vocoder(
             models.vocoder_params, mel, models.vocoder_cfg, seed=seed + 2,
             rng=rng, compute_dtype=compute_dtype, device=device)
-    timings["vocoder_s"] = time.monotonic() - t0
+        timings["vocoder_s"] = time.monotonic() - t0
     return SynthesisResult(audio=audio,
                            sample_rate=models.vocoder_cfg.sample_rate,
                            mel=mel, sequences=sequences, latents=latents,
