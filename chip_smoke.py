@@ -21,7 +21,7 @@ Phases (any failure exits nonzero before the result line):
    and at a 32-frame chunk (timed), at a ragged L = 2186 and on two
    batch rows of stacked kernels;
 4. end to end at full production width (random weights, bf16 + int8,
-   stand-in tokens), six requests, each with the launch counts set to 0
+   stand-in tokens), eight requests, each with the launch counts set to 0
    before it and read after it: request 1 through the CLI at
    --batch-size 1 must launch kernels A and B, request 2 at --batch-size
    8 must also launch kernel C (the latent pass); request 3, synthesize()
@@ -35,7 +35,22 @@ Phases (any failure exits nonzero before the result line):
    settings, must give request 1's tokens and audio (rel 1e-3; expect
    bit-equal) and launch A and B; the audio must be finite and of the
    vocoder's length for its mel. Then the parity runner's dry run: 3 SKIP
-   and exit 0 without weights, exit 1 on a corrupt vocoder file;
+   and exit 0 without weights, exit 1 on a corrupt vocoder file. Then
+   the port on a mesh (``parallel/``): request 7, one rank on NCCL
+   (``make_mesh(1)``), synthesize_batch on request 4's texts over 8 rows
+   with the mesh and without: equal sequences, bit-equal audio, kernels A,
+   B and C; request 8, two ranks on the one card (gloo by name): (a) dp
+   (2, 1) must launch A and B and not C on each rank and give request
+   7's tokens (a parting is held to the firm-row rule and to the two
+   batch shapes' logits), and bit for bit the tokens and audio of the
+   mesh-less run of each rank's 4 rows with the global draws' rows;
+   kernel A, splitting its work as for the whole batch, must give rows
+   0-3 at B = 4 the bits they have at B = 8; the audio against request
+   7's is printed beside each stage's part of the difference;
+   (b) tp (1, 2), cut to 48 decode and 20 denoising steps (full widths):
+   a prefill + decode_step and a denoiser eval within 2e-2 of one rank's,
+   and a 2-row batch with finite audio of the vocoder's length that
+   launches B and not A;
 5. small-input agreement: the tiny f32 parity plane on the card against
    the same run on the CPU (same tokens, mel and audio within tolerance),
    on the default configs and on the fallback + fused-LVC configs; then
@@ -53,6 +68,7 @@ line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -176,7 +192,10 @@ def sdpa_ms(torch, q, k, v, add, label) -> float:
 # Phase 3's attention and LVC shapes and inputs, which
 # scripts/torch_kernel_times.py times as well.
 # B: (b, t, valid length of row 1 or None), 16 heads of 64; the first timed
-B_CASES = ((2, 2176, None), (2, 1000, 937), (8, 384, None), (8, 2176, 1813))
+# (2B CFG rows, T, a ragged row's length, heads of 64): 16 heads at full
+# width; 8 and 4 are a tp rank's local heads at tp = 2 (request 8(b)) and 4
+B_CASES = ((2, 2176, None, 16), (2, 1000, 937, 16), (8, 384, None, 16),
+           (8, 2176, 1813, 16), (4, 2176, 1813, 8), (4, 2176, None, 4))
 C_SHAPE = (8, 16, 535)  # (b, heads, S): the AR latent pass at batch 8
 # D1: (b, t, heads, head width, key masks), timed at head width 32
 D1_CASES = ((2, 2176, 32, 32, (None, 1900)), (2, 1000, 32, 32, (937,)),
@@ -565,15 +584,16 @@ def check_kernel_b(torch, results):
     """Kernel B: the denoiser's (2, 2176, 3072) bf16 packed qkv with the
     rel-pos table, unmasked, plus a masked ragged length; a stream
     window's (8, 384) unmasked; a server batch's 2B = 8 CFG rows at 2176
-    with one utterance (rows 1 and 5) shorter."""
+    with one utterance (rows 1 and 5) shorter; a tp rank's 2-row batch
+    on its 8 (tp = 2) or 4 (tp = 4) local heads."""
     from tortoise_tpu_torch.ops.cuda import flash_attention as K
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    H, worst, tol = 16, 0.0, 2e-2
-    table = torch.randn((32, H), generator=g, device=dev) * 0.3
+    worst, tol = 0.0, 2e-2
     timing = None
-    for b, t, n_valid in B_CASES:
+    for b, t, n_valid, H in B_CASES:
+        table = torch.randn((32, H), generator=g, device=dev) * 0.3
         qkv = bf16_qkv(torch, g, b, t, H, 64)
         valid = None
         if n_valid is not None:
@@ -589,10 +609,10 @@ def check_kernel_b(torch, results):
         torch.cuda.synchronize()
         err, rel = rel_err(torch, got, want)
         worst = max(worst, err)
-        print(f"  B ({b}, {t}) valid={n_valid}: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} (tol rel {tol})")
+        print(f"  B ({b}, {t}) x {H} heads valid={n_valid}: max_abs_err="
+              f"{err:.3e} rel={rel:.3e} (tol rel {tol})")
         if not rel <= tol:
-            fail(f"kernel B disagrees at T={t}: rel {rel}")
+            fail(f"kernel B disagrees at ({b}, {t}) x {H} heads: rel {rel}")
         if timing is None:
             timing = (
                 cuda_ms(torch, lambda: K.flash_attention_packed(
@@ -1478,6 +1498,544 @@ def check_parity_dry_run(out_dir) -> None:
                  f"{proc.stderr[-800:]}")
 
 
+# requests 7 and 8: the port on a mesh (parallel/), bf16 + int8, full width
+MESH_TP_TOL = 2e-2     # request 8(b) against one rank's outputs, relative
+MESH_TP_STEPS = 48     # request 8(b)'s decode steps (widths stay full)
+MESH_TP_DIFFUSION = 20  # request 8(b)'s denoising steps (of 80)
+
+
+def _mesh_rows():
+    """Request 4's stand-in texts on 8 rows (4 lengths x 2 voices; the two
+    rows of a length differ in one id)."""
+    import numpy as np
+
+    rows = [[255, 20 + i % 2] + STANDIN_TOKENS[2:n - 1] + [0]
+            for i, n in enumerate((30, 30, 22, 22, 14, 14, 26, 26))]
+    voices = np.stack([np.random.default_rng(10 + i % 2).normal(
+        0, 0.5, (1024,)).astype(np.float32) for i in range(8)])
+    return rows, voices
+
+
+def _mesh_kw(torch) -> dict:
+    return dict(seed=0, compute_dtype=torch.bfloat16, int8_weights=True,
+                device="cuda", materialize=False)
+
+
+def run_request_7(torch, models, smi, reset_launch_counts, launch_counts):
+    """One rank on NCCL: a world-size-1 group (FileStore in a temporary
+    directory) and make_mesh(1); synthesize_batch on 8 rows with the mesh
+    and without, at one seed. The sequences must be equal, the audio
+    bit-equal, and the mesh run must launch A, B and C. Returns (launch
+    counts, the mesh run's results)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tortoise_tpu_torch.parallel import make_mesh
+    from tortoise_tpu_torch.pipeline.synthesize import synthesize_batch
+
+    rows, voices = _mesh_rows()
+    kw = _mesh_kw(torch)
+    t0 = time.monotonic()
+    plain = synthesize_batch(models, tokens_list=rows, voices=voices, **kw)
+    torch.cuda.synchronize()
+    plain_wall = time.monotonic() - t0
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        dist.init_process_group("nccl", rank=0, world_size=1,
+                                init_method="file://" + os.path.join(d, "s"))
+        try:
+            mesh = make_mesh(1)
+            reset_launch_counts()
+            t0 = time.monotonic()
+            meshed = synthesize_batch(models, tokens_list=rows, voices=voices,
+                                      mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            counts = launch_counts()
+        finally:
+            dist.destroy_process_group()
+    if [r.sequences for r in meshed] != [r.sequences for r in plain]:
+        fail("request 7: the mesh run's sequences differ from the "
+             "mesh-less run's")
+    err = max(float(np.abs(a.audio - b.audio).max())
+              for a, b in zip(meshed, plain))
+    t = meshed[0].timings
+    print(f"  request 7 (make_mesh(1), NCCL, 8 rows): sequences equal the "
+          f"mesh-less run's; audio max |diff| {err:.3e}; launches {counts}; "
+          f"stage walls { {k: round(v, 3) for k, v in t.items()} }; wall "
+          f"{wall:.2f} s (mesh-less {plain_wall:.2f} s) [{smi}]")
+    if err != 0.0:
+        fail(f"request 7: audio not bit-equal to the mesh-less run's: {err}")
+    return counts, meshed
+
+
+def _request_8_rank(rank, world, rows, voices):
+    """One of request 8's two ranks, both on cuda:0, on a gloo group named
+    as such (NCCL refuses two ranks on one device). (a) dp (2, 1):
+    synthesize_batch on the 8 rows. (b) tp (1, 2): one prefill +
+    decode_step and one denoiser eval held against this rank's own
+    single-rank outputs of the same inputs, then a 2-row synthesize_batch
+    cut in depth to MESH_TP_STEPS decode and MESH_TP_DIFFUSION denoising
+    steps (widths stay full: every tp collective is staged through the
+    host under gloo, and the 80-step run took 51 s a rank)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tortoise_tpu_torch.models import ar
+    from tortoise_tpu_torch.models import diffusion as dm
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tortoise_tpu_torch.parallel import (
+        ar_param_specs,
+        make_mesh,
+        shard_tree,
+    )
+    from tortoise_tpu_torch.parallel.mesh import axis_group
+    from tortoise_tpu_torch.pipeline import ar_stage
+    from tortoise_tpu_torch.pipeline import diffusion_stage as dst
+    from tortoise_tpu_torch.pipeline.synthesize import (
+        TortoiseModels,
+        synthesize_batch,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent's phase 1
+    torch.backends.cudnn.allow_tf32 = False
+    models = TortoiseModels.random(0, diffusion={"use_flash": True})
+    kw, bf16 = _mesh_kw(torch), torch.bfloat16
+    out = {}
+
+    def timed_batch(label, m, rows, voices, mesh):
+        reset_launch_counts()
+        t0 = time.monotonic()
+        res = synthesize_batch(m, tokens_list=rows, voices=voices, mesh=mesh,
+                               **kw)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = launch_counts()
+        t = res[0].timings
+        print(f"rank {rank} request 8({label}): launches {counts}; stage "
+              f"walls { {k: round(v, 3) for k, v in t.items()} }; wall "
+              f"{wall:.2f} s", flush=True)
+        return dict(sequences=[r.sequences for r in res],
+                    audio=[r.audio for r in res], launches=counts,
+                    wall=wall, timings=t)
+
+    out["a"] = timed_batch("a", models, rows, voices,
+                           make_mesh(2, shape=(2, 1), backend="gloo"))
+
+    mesh = make_mesh(2, shape=(1, 2), backend="gloo")
+    tp = axis_group(mesh, "tp")
+    cfg = dataclasses.replace(ar_stage.size_cache(models.ar_cfg, 32),
+                              fused_decode=False)
+    full = ar_stage.cast_matmul_weights(models.ar_params, bf16, True, "cuda")
+    local = shard_tree(dict(full, head_pack=None), ar_param_specs(mesh),
+                       mesh)
+    ids = torch.zeros((2, 32), dtype=torch.long, device="cuda")
+    valid = torch.zeros((2, 32), dtype=torch.bool, device="cuda")
+    for i, row in enumerate(rows[:2]):
+        ids[i, :len(row)] = torch.as_tensor(row)
+        valid[i, :len(row)] = True
+    voice = torch.as_tensor(voices[:2], device="cuda")
+    tok = torch.full((2,), 7, device="cuda")
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        if not bool(torch.isfinite(got).all()):
+            return float("inf")
+        return float((got - want).abs().max() / want.abs().max())
+
+    l1, c1 = ar.prefill(full, cfg, ids, valid, voice, bf16)
+    l2, c2 = ar.prefill(local, cfg, ids, valid, voice, bf16, tp)
+    d1, _ = ar.decode_step(full, cfg, c1, tok, 0, bf16)
+    d2, _ = ar.decode_step(local, cfg, c2, tok, 0, bf16, tp)
+    dcfg = models.diffusion_cfg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2, dcfg.n_mel, 256), generator=g, device="cuda")
+    code = 0.5 * torch.randn((2, dcfg.d_model, 256), generator=g,
+                             device="cuda")
+    e1 = dm.denoise(dst._prepare_params(models.diffusion_params, True,
+                                        "cuda"), dcfg, x, code, 100, None,
+                    None, bf16)
+    e2 = dm.denoise(dst._prepare_params(models.diffusion_params, True,
+                                        "cuda", mesh), dcfg, x, code, 100,
+                    None, None, bf16, tp)
+    out["b_rel"] = dict(prefill=rel(l2, l1), decode_step=rel(d2, d1),
+                        denoise=rel(e2, e1))
+    print(f"rank {rank} request 8(b) tp (1, 2) against one rank: rel "
+          f"{out['b_rel']}", flush=True)
+    cut = dataclasses.replace(
+        models, ar_cfg=dataclasses.replace(
+            models.ar_cfg, max_decode_steps=MESH_TP_STEPS),
+        diffusion_cfg=dataclasses.replace(
+            dcfg, n_sample_timesteps=MESH_TP_DIFFUSION))
+    out["b"] = timed_batch("b", cut, rows[:2], voices[:2], mesh)
+    out["b"]["lengths"] = [_one_shot_length(cut, s[0])
+                           for s in out["b"]["sequences"]]
+    out["b"]["finite"] = all(bool(np.isfinite(a).all())
+                             for a in out["b"]["audio"])
+    return out
+
+
+def _rel_audio(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return float("inf")
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                  1e-30)
+
+
+@contextlib.contextmanager
+def _as_dp_rank(n, sel):
+    """Mesh-less stage calls on rows ``sel`` of an ``n``-row batch, as a
+    dp rank runs them: every draw the global batch's draw cut to those
+    rows, and kernel A's work split as for the global batch."""
+    from tortoise_tpu_torch.models import ar
+    from tortoise_tpu_torch.pipeline import ar_stage
+    from tortoise_tpu_torch.pipeline import diffusion_stage as dst
+    from tortoise_tpu_torch.pipeline import vocoder_stage as vst
+
+    seams = [(ar_stage, "draw_uniform"), (dst, "draw_normal"),
+             (vst, "draw_normal")]
+    saved = [getattr(m, name) for m, name in seams]
+    step = ar.decode_sample_step
+    try:
+        ar.decode_sample_step = lambda *a, **k: step(
+            *a, **dict(k, split_rows=n))
+        for (m, name), draw in zip(seams, saved):
+            setattr(m, name, lambda g, shape, dev, draw=draw:
+                    draw(g, (n,) + tuple(shape[1:]), dev)[sel])
+        yield
+    finally:
+        ar.decode_sample_step = step
+        for (m, name), draw in zip(seams, saved):
+            setattr(m, name, draw)
+
+
+def _dp_reference(torch, models, rows, voices, n_ranks):
+    """Request 8(a)'s dp run without a mesh: each rank's rows as a batch of
+    their own (the shapes its kernels see), ``_as_dp_rank``."""
+    from tortoise_tpu_torch.pipeline.synthesize import synthesize_batch
+
+    n, per = len(rows), len(rows) // n_ranks
+    out = []
+    for r in range(n_ranks):
+        sel = slice(r * per, (r + 1) * per)
+        with _as_dp_rank(n, sel):
+            out += synthesize_batch(models, tokens_list=rows[sel],
+                                    voices=voices[sel], **_mesh_kw(torch))
+    return out
+
+
+def _locate_audio_dependence(torch, models, rows, voices) -> dict:
+    """Where request 8(a)'s audio parts from request 7's although its
+    tokens are equal: each stage of rows 0-3 at B = 8 against the same
+    rows at B = 4 (no mesh; ``_as_dp_rank``), the 4-row run given the
+    8-row run's input at every stage: the AR stage's latents (its latent
+    pass takes kernel C on 8 rows, the plain attention on 4), one
+    denoiser eval, the whole diffusion stage on the 8-row latents, and
+    the vocoder on the 8-row mel. Returns each stage's rel max |diff|
+    over rows 0-3."""
+    from tortoise_tpu_torch.models import diffusion as dm
+    from tortoise_tpu_torch.ops.relpos import relative_position_buckets
+    from tortoise_tpu_torch.pipeline import ar_stage
+    from tortoise_tpu_torch.pipeline import diffusion_stage as dst
+    from tortoise_tpu_torch.pipeline import vocoder_stage as vst
+
+    bf16, n, sel = torch.bfloat16, len(rows), slice(0, 4)
+    kw = dict(compute_dtype=bf16, device="cuda")
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def stages(rows_, voices_, lat=None, mel=None, lens=None):
+        got = {}
+        lat_, keeps, _ = ar_stage.autoregressive_batch(
+            models.ar_params, rows_, voices_, models.ar_cfg, seed=0,
+            int8_weights=True, return_device_latents=True, **kw)
+        got["latents"] = lat_
+        m, lens_ = dst.diffusion_batch_device(
+            models.diffusion_params, lat_ if lat is None else lat, keeps,
+            models.diffusion_cfg, seed=1, int8_weights=True, **kw)
+        got["mel"] = m
+        got["audio"] = vst.vocoder_batch_device(
+            models.vocoder_params, m if mel is None else mel,
+            lens_ if lens is None else lens, models.vocoder_cfg, seed=2,
+            **kw)
+        return got, lens_
+
+    whole, lens = stages(rows, voices)
+    with _as_dp_rank(n, sel):
+        part, _ = stages(rows[sel], voices[sel], whole["latents"][sel],
+                         whole["mel"][sel], lens[sel])
+    dcfg = models.diffusion_cfg
+    params = dst._prepare_params(models.diffusion_params, True, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2 * n, dcfg.n_mel, 256), generator=g, device="cuda")
+    code = 0.5 * torch.randn((2 * n, dcfg.d_model, 256), generator=g,
+                             device="cuda")
+    buckets = torch.as_tensor(relative_position_buckets(
+        256, dcfg.rel_pos_buckets, dcfg.rel_pos_max_distance), device="cuda")
+    e8 = dm.denoise(params, dcfg, x, code, 100, buckets, None, bf16)
+    e4 = dm.denoise(params, dcfg, x[:8], code[:8], 100, buckets, None, bf16)
+    out = {"AR latents": rel(part["latents"], whole["latents"][sel]),
+           "one denoiser eval (CFG rows 0-7 of 16)": rel(e4, e8[:8]),
+           "diffusion stage on the same latents":
+               rel(part["mel"], whole["mel"][sel]),
+           "vocoder on the same mel": max(
+               rel(torch.as_tensor(a), torch.as_tensor(b))
+               for a, b in zip(part["audio"], whole["audio"][:4]))}
+    print(f"  request 8(a)'s audio against request 7's, stage by stage at "
+          f"B = 4 vs B = 8 on the same input (rel max |diff|): {out}")
+    return out
+
+
+class _StageSampler:
+    """The stage's plain sampler in the form ``_firm_rows`` calls."""
+
+    @staticmethod
+    def sample_plain(logits, prev, u, sampler):
+        from tortoise_tpu_torch.ops import sampling as S
+
+        probs, ids = S.process_logits_topk(logits, prev, *sampler)
+        return S.sample_from_topk_u(u, probs, ids)[:, None]
+
+
+def _check_mesh_tokens(torch, models, rows, voices, want, got, label):
+    """Request 8(a)'s tokens against request 7's. The first differing row
+    of each rank's 4 is held at its first differing step to both batch
+    shapes' logits there (request 7's 8 rows and the rank's 4, teacher
+    forced on request 7's tokens), under the sampler that drew it (kernel
+    A's after step 0 on its plane, else the stage's): the draw's gap to
+    the nearest CDF edge; whether each shape's logits pick the token its
+    run picked (then the batch shape's rounding at that edge is the
+    whole difference); and the firm-row rule (the pick holds under
+    Gaussian logit noise of twice the two shapes' RMS difference). A row
+    the two shapes do not explain and whose draw is firm fails. Returns
+    the rows whose tokens are equal."""
+    from tortoise_tpu_torch.models import ar
+    from tortoise_tpu_torch.ops.cuda import decode_trunk
+    from tortoise_tpu_torch.pipeline import ar_stage, common
+
+    same = [g == w for g, w in zip(got, want)]
+    if all(same):
+        return same
+    sampler = ar_stage.normalize_sampler(None)
+    cfg = ar_stage.size_cache(models.ar_cfg, 32)
+    params = ar_stage.cast_matmul_weights(models.ar_params, torch.bfloat16,
+                                          True, "cuda")
+    # sequences are padded (start id first), so sampled id s is at s + 1
+    drawn = [seq[0][1:] for seq in want]
+    for r in {i // 4 * 4 + [*same[i // 4 * 4:], False].index(False)
+              for i, ok in enumerate(same) if not ok}:
+        w, g = want[r][0][1:], got[r][0][1:]
+        s = next(i for i in range(min(len(w), len(g))) if w[i] != g[i])
+        gen = common.make_generator(0, "cuda")
+        for _ in range(s + 1):
+            u = ar_stage.draw_uniform(gen, (8, 1), "cuda")
+        logits = []
+        for sel in (list(range(8)), list(range(r // 4 * 4, r // 4 * 4 + 4))):
+            ids = torch.zeros((len(sel), 32), dtype=torch.long, device="cuda")
+            valid = torch.zeros_like(ids, dtype=torch.bool)
+            for j, i in enumerate(sel):
+                ids[j, :len(rows[i])] = torch.as_tensor(rows[i])
+                valid[j, :len(rows[i])] = True
+            voice = torch.as_tensor(voices[sel], device="cuda")
+            lg, cache = ar.prefill(params, cfg, ids, valid, voice,
+                                   torch.bfloat16)
+            for step in range(s):
+                tok = torch.as_tensor([drawn[i][step] if step < len(
+                    drawn[i]) else cfg.stop_mel_token for i in sel],
+                    device="cuda")
+                lg, cache = ar.decode_step(params, cfg, cache, tok, step,
+                                           torch.bfloat16, split_rows=8)
+            logits.append(lg[sel.index(r)][None].float())
+        drew = decode_trunk if s > 0 and ar.can_fuse_sampling(
+            params, cfg, torch.bfloat16, 8, sampler) else _StageSampler
+        if s == 0:
+            prev = torch.ones((1, 34), dtype=torch.long, device="cuda")
+            prev[:, -1] = cfg.start_mel_token
+        else:
+            prev = torch.tensor([[w[s - 1]]], device="cuda")
+        u_r = u[r:r + 1]
+        rms = float((logits[0] - logits[1]).pow(2).mean().sqrt())
+        gap = _cdf_gaps(torch, logits[0], prev, u_r, sampler)[0]
+        picks = [int(drew.sample_plain(lg, prev, u_r, sampler)[0, 0])
+                 for lg in logits]
+        explained = picks == [w[s], g[s]]
+        firm = bool(_firm_rows(torch, drew, logits[0], prev, u_r, sampler,
+                               2 * rms)[0])
+        print(f"  {label}: row {r} differs first at step {s} (tokens "
+              f"{w[s]} / {g[s]}): draw gap to the CDF edge {gap:.3e}, "
+              f"logit RMS diff 8 vs 4 rows {rms:.3e}, the two shapes' "
+              f"logits pick {picks} (explained {explained}), firm {firm}")
+        if firm and not explained:
+            fail(f"{label}: row {r}'s tokens differ on a firm draw")
+    return same
+
+
+LOCATE_A_STEPS = 330  # past slot 320, where B = 4's second chunk begins
+LOCATE_PLAIN_STEPS = 16
+
+
+def _locate_batch_dependence(torch, models, rows, voices, want) -> dict:
+    """Where the AR stage's per-row bits depend on B: rows 0-3 in request
+    7's batch of 8 against the same rows as a batch of 4 (a dp rank's),
+    on identical inputs. The prefill of each shape (kernel C runs in
+    neither: B * 34^2 is under flash_prefill_min_score); then decode
+    steps teacher forced on request 7's tokens, both shapes from ONE
+    cache (the 8-row prefill's; the 4-row copy is its first rows):
+    kernel A at B = 4 with its own split of the cache attention and with
+    the 8-row batch's (``split_rows``, as a dp rank runs it), for
+    LOCATE_A_STEPS steps; the plain decode_step for LOCATE_PLAIN_STEPS.
+    Returns, for each, the largest |diff| of rows 0-3's logits from the
+    8-row run's and the first step that differs (0.0 and None: that part
+    is row-independent)."""
+    import dataclasses
+
+    from tortoise_tpu_torch.models import ar
+    from tortoise_tpu_torch.pipeline import ar_stage
+
+    bf16 = torch.bfloat16
+    cfg = ar_stage.size_cache(models.ar_cfg, 32)
+    params = ar_stage.cast_matmul_weights(models.ar_params, bf16, True,
+                                          "cuda")
+    ids = torch.zeros((8, 32), dtype=torch.long, device="cuda")
+    valid = torch.zeros_like(ids, dtype=torch.bool)
+    for i, row in enumerate(rows):
+        ids[i, :len(row)] = torch.as_tensor(row)
+        valid[i, :len(row)] = True
+    voice = torch.as_tensor(voices, device="cuda")
+
+    def diff(a, b):
+        return float((a.float() - b.float()).abs().max())
+
+    l8, c8 = ar.prefill(params, cfg, ids, valid, voice, bf16)
+    l4, c4 = ar.prefill(params, cfg, ids[:4], valid[:4], voice[:4], bf16)
+    out = {"prefill logits": diff(l8[:4], l4),
+           "prefill cache": max(diff(c8.k[:, :4], c4.k),
+                                diff(c8.v[:, :4], c4.v))}
+    drawn = [seq[0][1:] for seq in want]
+    for label, fused, split, steps in (
+            ("kernel A, B = 4's own split", True, None, LOCATE_A_STEPS),
+            ("kernel A, split as B = 8", True, 8, LOCATE_A_STEPS),
+            ("plain decode_step", False, None, LOCATE_PLAIN_STEPS)):
+        c = dataclasses.replace(cfg, fused_decode=fused)
+        caches = [ar.KVCache(c8.k[:, :n].clone(), c8.v[:, :n].clone(),
+                             c8.valid[:n].clone(), c8.length)
+                  for n in (8, 4)]
+        worst, first = 0.0, None
+        for step in range(steps):
+            tok = torch.as_tensor([d[step] for d in drawn], device="cuda")
+            lg8, caches[0] = ar.decode_step(params, c, caches[0], tok, step,
+                                            bf16)
+            lg4, caches[1] = ar.decode_step(params, c, caches[1], tok[:4],
+                                            step, bf16, split_rows=split)
+            e = diff(lg8[:4], lg4)
+            if e > 0 and first is None:
+                first = step
+            worst = max(worst, e)
+        out[f"{label}, {steps} steps from one cache"] = (worst, first)
+    print(f"  the AR stage's B-dependence, rows 0-3 at B = 8 vs B = 4 "
+          f"(max |diff|, first differing step): {out}")
+    return out
+
+
+def run_request_8(torch, models, smi, req7) -> dict:
+    """Two ranks on the one card (gloo): (a) dp (2, 1) must launch A and B
+    on each rank and not C (4 x 535^2 is under flash_prefill_min_score),
+    give request 7's tokens (a difference is held to the firm-row rule and
+    to the two batch shapes' logits, ``_check_mesh_tokens``), and the
+    tokens and audio of the same-shape mesh-less reference
+    (``_dp_reference``) bit for bit. Kernel A, split as for the whole
+    batch, must be row-independent (``_locate_batch_dependence``). The
+    audio against request 7's is printed with each stage's part of the
+    difference (``_locate_audio_dependence``), not held: the mesh-less
+    port's audio of 4 rows already parts from that of the same rows in a
+    batch of 8 (PERF.md).
+    (b) tp (1, 2) within MESH_TP_TOL of one rank's outputs, finite audio
+    of the vocoder's length, B and not A on each rank. Returns the ranks'
+    summed launch counts."""
+    from tortoise_tpu_torch.parallel.launch import run_ranks
+
+    rows, voices = _mesh_rows()
+    t0 = time.monotonic()
+    ref = _dp_reference(torch, models, rows, voices, 2)
+    print(f"  request 8(a)'s same-shape mesh-less reference (2 batches of 4 "
+          f"rows, the global draws' rows) in {time.monotonic() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(dir=ROOT) as d:
+        t0 = time.monotonic()
+        try:
+            out = run_ranks(_request_8_rank, 2, (rows, voices), workdir=d,
+                            timeout=600, backend="gloo", threads=4)
+        except RuntimeError as e:
+            fail(f"request 8: {e}")
+        wall = time.monotonic() - t0
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                for line in f.read().splitlines():
+                    if line.startswith(f"rank {r} "):
+                        print("  " + line)
+    print(f"  request 8 (2 ranks on cuda:0, gloo): (a) dp walls "
+          f"{[round(o['a']['wall'], 2) for o in out]} s, (b) tp "
+          f"{MESH_TP_STEPS} decode and {MESH_TP_DIFFUSION} denoising steps "
+          f"(depth cut, full widths), walls "
+          f"{[round(o['b']['wall'], 2) for o in out]} s; spawn to exit "
+          f"{wall:.2f} s [{smi}]")
+    want_seq = [r.sequences for r in req7]
+    probe = _locate_batch_dependence(torch, models, rows, voices, want_seq)
+    _locate_audio_dependence(torch, models, rows, voices)
+    checks = []
+    for r, o in enumerate(out):
+        a, b = o["a"], o["b"]
+        errs = [_rel_audio(x, y.audio) for x, y in zip(a["audio"], ref)]
+        e7 = [_rel_audio(x, y.audio) for x, y, ok in zip(
+            a["audio"], req7, _check_mesh_tokens(
+                torch, models, rows, voices, want_seq, a["sequences"],
+                f"request 8(a) rank {r}")) if ok]
+        print(f"  request 8(a) rank {r}: {len(e7)} of 8 rows' tokens equal "
+              f"request 7's" + (f", their audio rel max {max(e7):.3e}"
+                                if e7 else "") +
+              f"; tokens equal the same-shape reference's: "
+              f"{a['sequences'] == [x.sequences for x in ref]}, audio rel "
+              f"max {max(errs):.3e} against it")
+        checks += [
+            (a["launches"]["decode_trunk"] >= 1
+             and a["launches"]["flash_attention_packed"] >= 1,
+             f"request 8(a): rank {r} did not launch A and B: "
+             f"{a['launches']}"),
+            (a["launches"]["flash_attention_causal_qkv"] == 0,
+             f"request 8(a): rank {r} launched C: {a['launches']}"),
+            (a["sequences"] == [x.sequences for x in ref],
+             f"request 8(a): rank {r}'s tokens differ from the same-shape "
+             f"mesh-less reference's"),
+            (max(errs) == 0.0,
+             f"request 8(a): rank {r}'s audio differs from the same-shape "
+             f"reference's: {errs}"),
+            (all(v <= MESH_TP_TOL for v in o["b_rel"].values()),
+             f"request 8(b): rank {r} differs from one rank's outputs by "
+             f"more than {MESH_TP_TOL}: {o['b_rel']}"),
+            (b["finite"] and [len(x) for x in b["audio"]] == b["lengths"],
+             f"request 8(b): rank {r} audio finite {b['finite']}, lengths "
+             f"{[len(x) for x in b['audio']]} want {b['lengths']}"),
+            (b["launches"]["flash_attention_packed"] >= 1
+             and b["launches"]["decode_trunk"] == 0,
+             f"request 8(b): rank {r} must launch B and not A: "
+             f"{b['launches']}")]
+    split = probe[f"kernel A, split as B = 8, {LOCATE_A_STEPS} steps from "
+                  f"one cache"]
+    checks.append((split == (0.0, None),
+                   f"request 8: kernel A at B = 4 split as B = 8 is not "
+                   f"row-independent: {split}"))
+    for ok, msg in checks:
+        if not ok:
+            fail(msg)
+    return {k: sum(o[p]["launches"][k] for o in out for p in "ab")
+            for k in out[0]["a"]["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1564,7 +2122,8 @@ def main(argv=None) -> int:
     # after. Kernels every request of its path must launch, and kernels
     # it must not launch:
     needs = {1: ("A", "B"), 2: ("A", "B", "C"), 3: ("A", "D1", "E"),
-             4: ("A", "B", "C"), 5: ("A", "B", "E"), 6: ("A", "B")}
+             4: ("A", "B", "C"), 5: ("A", "B", "E"), 6: ("A", "B"),
+             7: ("A", "B", "C"), 8: ("A", "B")}
     print("[4/5] end to end at full production width (random weights, "
           "bf16 + int8)", flush=True)
     per_request = {}
@@ -1586,14 +2145,21 @@ def main(argv=None) -> int:
         models = TortoiseModels.random(0, diffusion={"use_flash": True})
         per_request[4] = run_request_4(torch, models, out_dir, smi,
                                        reset_launch_counts, launch_counts)
-        models = dataclasses.replace(models, vocoder_cfg=dataclasses.replace(
-            models.vocoder_cfg, use_pallas_lvc=True))
-        per_request[5] = run_request_5(torch, models, smi,
-                                       reset_launch_counts, launch_counts)
-        del models
+        per_request[5] = run_request_5(
+            torch, dataclasses.replace(models, vocoder_cfg=dataclasses.replace(
+                models.vocoder_cfg, use_pallas_lvc=True)), smi,
+            reset_launch_counts, launch_counts)
         # the warm start: its launches are counted in the child
         per_request[6] = run_request_6(smi, req[1])
         check_parity_dry_run(out_dir)
+        # the mesh: one rank on NCCL, then two ranks on the card (gloo)
+        t_mesh = time.monotonic()
+        per_request[7], req[7] = run_request_7(
+            torch, models, smi, reset_launch_counts, launch_counts)
+        per_request[8] = run_request_8(torch, models, smi, req[7])
+        print(f"  requests 7-8 (mesh) wall {time.monotonic() - t_mesh:.1f} s "
+              f"[{smi}]")
+        del models
     for r, c in per_request.items():
         print(f"  launches, request {r}: {c}")
         for key in needs[r]:

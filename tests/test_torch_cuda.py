@@ -139,6 +139,31 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, b, sample):
 
 
 @pytest.mark.cuda
+def test_decode_kernel_rows_split_as_their_batch_on_card(cuda_device):
+    """A dp rank's rows through kernel A with ``split_rows`` naming the
+    whole batch get the bits they get in the whole batch's launch (the
+    cache attention is split over the blocks by B * H, so a smaller B
+    alone would split it another way)."""
+    cfg = dataclasses.replace(tiny_ar_config(), d_model=128, n_head=2,
+                              d_mlp=256, n_mel_vocab=300, cache_len=640)
+    params = quantize_ar(tree_to_torch(random_ar_params(cfg, seed=4),
+                                       cuda_device))
+    ck, cv, _, x, prev, u = (torch.tensor(a).to(cuda_device)
+                             for a in _decode_inputs(cfg, 8, 28))
+    ck, cv = ck.bfloat16(), cv.bfloat16()
+    bias = torch.zeros((8, cfg.cache_len), device=cuda_device)
+    kw = dict(head=params["head_pack"], n_head=cfg.n_head,
+              sampler=(0.8, 50, 0.2, 2.0))
+    whole = TA.fused_decode_trunk(params["blocks"], ck, cv, bias, x,
+                                  prev_u=(prev, u), **kw)
+    part = TA.fused_decode_trunk(
+        params["blocks"], ck[:, :4].contiguous(), cv[:, :4].contiguous(),
+        bias[:4], x[:4], prev_u=(prev[:4], u[:4]), split_rows=8, **kw)
+    for w, p, rows_dim in zip(whole, part, (0, 1, 1, 0, 0)):
+        assert torch.equal(w.narrow(rows_dim, 0, 4), p)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rows", [8, 40])
 def test_int8_products_on_card_equal_cpu(cuda_device, rows):
     """The int8 x int8 product sums exactly on the card (int32 tensor-core
@@ -227,6 +252,43 @@ def test_d1_on_the_tma_body_matches_plain_on_card(cuda_device, d, b, t,
     assert TF._grouped_flash.launches == before + 1
     want = TF.flash_attention_plain(q, k, v, None, valid, **kw)
     assert got.dtype == torch.bfloat16
+    assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,h", [("B", 8), ("B", 4), ("C", 8),
+                                      ("C", 4), ("D1", 16)])
+def test_kernels_take_a_tp_ranks_local_heads_on_card(cuda_device, kernel,
+                                                     h):
+    """Under tensor parallelism a rank holds n_head / tp heads: B and C at
+    8 and 4 of the production 16 heads of 64 (tp = 2, 4), D1 at 16 of
+    the fallback's 32 heads of 32 (tp = 2), each against its plain
+    version and counted as a launch."""
+    d, t = (32, 600) if kernel == "D1" else (64, 535)
+    qkv = torch.tensor(_qkv(2, t, h, d, h + t)).bfloat16().to(cuda_device)
+    valid = torch.arange(t, device=cuda_device)[None, :] < torch.tensor(
+        [[t], [t - 77]], device=cuda_device)
+    if kernel == "D1":
+        q, k, v = (qkv.reshape(2, t, h, 3, d)[:, :, :, p].transpose(1, 2)
+                   for p in range(3))
+        kw = dict(bias_table=torch.randn(32, h, device=cuda_device) * 0.3,
+                  bias_formula=True)
+        fn, before = TF._grouped_flash, TF._grouped_flash.launches
+        got = TF.flash_attention(q, k, v, None, valid, **kw)
+        want = TF.flash_attention_plain(q, k, v, None, valid, **kw)
+    elif kernel == "B":
+        bias_vec = TF.relpos_bias_vector(
+            torch.randn(32, h, device=cuda_device) * 0.3, t)
+        fn = TF.flash_attention_packed
+        before = fn.launches
+        got = fn(qkv, h, valid, bias_vec=bias_vec)
+        want = TF.flash_attention_packed_plain(qkv, h, valid, bias_vec)
+    else:
+        fn = TF.flash_attention_causal_qkv
+        before = fn.launches
+        got = fn(qkv, h, valid)
+        want = TF.flash_attention_causal_qkv_plain(qkv, h, valid)
+    assert fn.launches == before + 1
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
 
 

@@ -54,7 +54,10 @@
 // So the step repeats bit for bit.
 //
 // The cache attention of one (row, head) is split over as many blocks as
-// the B * H groups leave idle (5 at B = 1 and C = 640, none at B = 16):
+// the B * H groups leave idle (5 at B = 1 and C = 640, none at B = 16),
+// B being split_b when the caller names a larger batch (a dp rank's rows
+// split as the whole batch's, so a row's bits do not depend on the dp
+// size: the chunks' sums meet in another order when the split differs):
 // a block's K and V tiles of 64 slots stream through an 8-stage TMA ring,
 // its first tiles issued before the barrier, like the weights. The
 // chunks of a group meet once, at a counter barrier over their score
@@ -1030,9 +1033,10 @@ TT_EXPORT long long tt_decode_partial_floats(int B, int D, int F, int Vp) {
 // ln_f, lm_ln (D,), int8 lm_wq (D, Vp), lm_sc, lm_b (Vp,) -> logits
 // (B, Vp) f32. Sampler (tok non-null): prev (B,) int32, u (B,) f32 -> tok
 // (B,) int32. Scratch: y (B, D) bf16; partial
-// (tt_decode_partial_floats(B, D, F, Vp) zeroed floats).
+// (tt_decode_partial_floats(B, D, F, Vp) zeroed floats). split_b: the
+// batch whose split of the cache attention to take (<= B: B's own).
 TT_EXPORT int tt_decode_trunk(
-    int L, int B, int C, int D, int H, int F, float eps, float* x,
+    int L, int B, int C, int D, int H, int F, int split_b, float eps, float* x,
     const float* bias_row, const float* ln1_w, const float* ln1_b,
     const int8_t* attn_w, const float* attn_s, const float* attn_b,
     const int8_t* proj_w, const float* proj_s, const float* proj_b,
@@ -1081,7 +1085,7 @@ TT_EXPORT int tt_decode_trunk(
   P.tile_count = reinterpret_cast<unsigned*>(P.att_part + scr.att);
   P.att_count = P.tile_count + scr.tiles;
   P.bar = P.att_count + scr.groups;
-  att_split(B, H, C, grid, &P.nchunk, &P.ct);
+  att_split(split_b > B ? split_b : B, H, C, grid, &P.nchunk, &P.ct);
   P.trace = g_trace;
 
   // the weights as (out, in, layer) int8 tensors, in boxes of 128 columns

@@ -12,6 +12,14 @@ Same architecture and public layouts as the JAX package:
   lm_head.1 (the double norm is part of the exported model);
 - KV cache (L, B, C, H*Dh), updated in place one slot per step.
 
+Tensor parallelism (``tp``, an ``AxisGroup`` on the mesh's "tp" axis,
+with the tree from ``parallel.shard_tree``): each rank holds H/tp heads
+(its part of q, k and v, its columns of fc) and the KV cache of those
+heads; proj and fc_proj are row-parallel products, all-reduced in f32
+before their bias; the lm head holds a vocab slice whose logits are
+gathered. Kernel A holds whole layers, so a tp run decodes with
+decode_step and the plain sampler; kernel C runs on the local heads.
+
 On the bf16 + int8 plane with a CUDA tensor, the decode step runs kernel
 A (``ops.cuda.decode_trunk``) and the full-sequence passes run kernel C
 (``ops.cuda.flash_attention``) once B*S^2 reaches
@@ -32,6 +40,7 @@ from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
 from tortoise_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_causal_qkv,
 )
+from tortoise_tpu_torch.parallel.mesh import local_count
 
 NEG_INF = -1e30
 DEFAULT_SAMPLER = (0.8, 50, 0.2, 2.0)  # temp, top_k, p_drop, penalty
@@ -47,26 +56,38 @@ class KVCache:
     length: int          # next write offset
 
 
-def _attn_out_merged(block, merged, x_res, cfg: ARConfig, compute_dtype):
+def _row_parallel(x, w, compute_dtype, out_dtype, tp):
+    """``pdot(x, w)`` for a row-parallel weight: under tp this rank's
+    partial sum, all-reduced in f32, then cast to ``out_dtype``."""
+    if tp is None:
+        return pdot(x, w, compute_dtype, out_dtype=out_dtype)
+    out = tp.all_reduce(pdot(x, w, compute_dtype, out_dtype=torch.float32))
+    return out if out_dtype is None else out.to(out_dtype)
+
+
+def _attn_out_merged(block, merged, x_res, cfg: ARConfig, compute_dtype,
+                     tp=None):
     """Project the merged (B, S, H*Dh) context, residual, MLP block; the
     carry stays in x_res's dtype (bf16 on the bf16/int8 planes)."""
     od = x_res.dtype if compute_dtype is not None else None
-    attn = pdot(merged, block["proj_w"], compute_dtype, out_dtype=od)
+    attn = _row_parallel(merged, block["proj_w"], compute_dtype, od, tp)
     x = x_res + (attn + block["proj_b"].to(attn.dtype))
     y = layer_norm(x, block["ln2_w"], block["ln2_b"], cfg.ln_eps)
     y = pdot(y, block["fc_w"], compute_dtype, out_dtype=od)
     y = gelu(y + block["fc_b"].to(y.dtype))
-    y = pdot(y, block["fc_proj_w"], compute_dtype, out_dtype=od)
+    y = _row_parallel(y, block["fc_proj_w"], compute_dtype, od, tp)
     return x + (y + block["fc_proj_b"].to(y.dtype))
 
 
-def flash_prefill_on(cfg: ARConfig, compute_dtype, shape) -> bool:
+def flash_prefill_on(cfg: ARConfig, compute_dtype, shape,
+                     n_head=None) -> bool:
     """True when the full-sequence passes take kernel C: bf16 plane only,
-    even heads, and B*S^2 >= cfg.flash_prefill_min_score."""
+    an even number of (this rank's) heads, and B*S^2 >= cfg.
+    flash_prefill_min_score over this rank's rows."""
     b, s = shape
     return (cfg.flash_prefill and compute_dtype == torch.bfloat16
             and b * s * s >= cfg.flash_prefill_min_score
-            and cfg.n_head % 2 == 0)
+            and (n_head or cfg.n_head) % 2 == 0)
 
 
 def _layer(blocks, l: int) -> dict:
@@ -76,14 +97,15 @@ def _layer(blocks, l: int) -> dict:
             for k, v in blocks.items()}
 
 
-def transformer(params, x, seq_valid, cfg: ARConfig, compute_dtype=None
-                ) -> Tuple[torch.Tensor, list, list]:
+def transformer(params, x, seq_valid, cfg: ARConfig, compute_dtype=None,
+                tp=None) -> Tuple[torch.Tensor, list, list]:
     """The trunk over a full sequence. Returns (hidden, per-layer k list,
-    per-layer v list) with k/v in the packed (B, S, H*Dh) layout."""
+    per-layer v list) with k/v in the packed (B, S, H*Dh) layout (this
+    rank's heads under tp)."""
     b, s, _ = x.shape
-    h, dh = cfg.n_head, cfg.d_head
+    h, dh = local_count(cfg.n_head, tp, "heads"), cfg.d_head
     hd = h * dh
-    use_flash = flash_prefill_on(cfg, compute_dtype, (b, s))
+    use_flash = flash_prefill_on(cfg, compute_dtype, (b, s), h)
     i = torch.arange(s, device=x.device)
     bias = torch.where((i[:, None] >= i[None, :])[None]
                        & seq_valid[:, None, :], 0.0, NEG_INF)[:, None]
@@ -108,19 +130,24 @@ def transformer(params, x, seq_valid, cfg: ARConfig, compute_dtype=None
             merged = ctx.permute(0, 2, 1, 3).reshape(b, s, hd)
             ks.append(qkv[:, :, hd:2 * hd])
             vs.append(qkv[:, :, 2 * hd:])
-        x = _attn_out_merged(block, merged, x, cfg, compute_dtype)
+        x = _attn_out_merged(block, merged, x, cfg, compute_dtype, tp)
     return x, ks, vs
 
 
-def _head(params, h, cfg: ARConfig, compute_dtype=None):
-    """Final norm chain + lm head -> logits."""
+def _head(params, h, cfg: ARConfig, compute_dtype=None, tp=None):
+    """Final norm chain + lm head -> logits (under tp each rank's vocab
+    slice, gathered)."""
     h = layer_norm(h, params["ln_f_w"], params["ln_f_b"], cfg.ln_eps)
     h = layer_norm(h, None, None, cfg.ln_eps)
     h = h * params["lm_ln_w"] + params["lm_ln_b"]
     lm_w = params["lm_w"]
     if isinstance(lm_w, tuple):  # int8 pair, pre-transposed at cast time
-        return pdot(h, lm_w, compute_dtype) + params["lm_b"]
-    return pdot(h, lm_w.T, compute_dtype) + params["lm_b"]
+        logits = pdot(h, lm_w, compute_dtype) + params["lm_b"]
+    else:
+        logits = pdot(h, lm_w.T, compute_dtype) + params["lm_b"]
+    if tp is None:
+        return logits
+    return tp.all_gather(logits, -1, tp.sizes(cfg.n_mel_vocab))
 
 
 def _latent_head(params, h, cfg: ARConfig):
@@ -139,7 +166,7 @@ def _embed(params, text_ids, text_valid, mel_ids, mel_pos, voice, cfg):
 
 
 def prefill(params, cfg: ARConfig, text_ids, text_valid, voice,
-            compute_dtype=None) -> Tuple[torch.Tensor, KVCache]:
+            compute_dtype=None, tp=None) -> Tuple[torch.Tensor, KVCache]:
     """Prefill over [latent | text | start-mel]: returns next-token logits
     (B, V) and the primed KV cache. text_ids/text_valid (B, Tpad);
     voice (D,) or (B, D)."""
@@ -153,11 +180,12 @@ def prefill(params, cfg: ARConfig, text_ids, text_valid, voice,
         x = x.to(compute_dtype)
     ones = torch.ones((b, 1), dtype=torch.bool, device=dev)
     seq_valid = torch.cat([ones, text_valid, ones], dim=1)
-    h, ks, vs = transformer(params, x, seq_valid, cfg, compute_dtype)
-    logits = _head(params, h[:, -1, :], cfg, compute_dtype)
+    h, ks, vs = transformer(params, x, seq_valid, cfg, compute_dtype, tp)
+    logits = _head(params, h[:, -1, :], cfg, compute_dtype, tp)
     s = x.shape[1]
     cache_dtype = compute_dtype or torch.float32
-    k = torch.zeros((cfg.n_layer, b, cfg.cache_len, cfg.d_model),
+    k = torch.zeros((cfg.n_layer, b, cfg.cache_len,
+                     local_count(cfg.n_head, tp, "heads") * cfg.d_head),
                     dtype=cache_dtype, device=dev)
     v = torch.zeros_like(k)
     k[:, :, :s] = torch.stack(ks).to(cache_dtype)
@@ -200,19 +228,22 @@ def _embed_step(params, tokens, step: int):
 
 
 def decode_step(params, cfg: ARConfig, cache: KVCache, tokens, step: int,
-                compute_dtype=None) -> Tuple[torch.Tensor, KVCache]:
+                compute_dtype=None, tp=None, split_rows=None
+                ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: tokens (B,) sampled ids, ``step`` the 0-based
     decode index. Returns (logits (B, V), cache) — the cache tensors are
-    updated in place (slot cache.length) and returned in a new KVCache."""
+    updated in place (slot cache.length) and returned in a new KVCache.
+    ``split_rows``: kernel A's ``split_rows`` (a dp rank's global batch)."""
     b = tokens.shape[0]
-    if (cfg.fused_decode and _int8_plane(params, compute_dtype)
-            and _fits_fused(b)):
+    if (tp is None and cfg.fused_decode
+            and _int8_plane(params, compute_dtype) and _fits_fused(b)):
         x = _embed_step(params, tokens, step)
         bias_row = torch.where(cache.valid, 0.0, NEG_INF).float()
         head = params.get("head_pack")
         out = fused_decode_trunk(params["blocks"], cache.k, cache.v,
                                  bias_row, x.float(), head=head,
-                                 n_head=cfg.n_head, eps=cfg.ln_eps)
+                                 n_head=cfg.n_head, eps=cfg.ln_eps,
+                                 split_rows=split_rows)
         if head is not None:
             _, k_rows, v_rows, logits_pad = out
             logits = logits_pad[:, :params["lm_b"].shape[0]]
@@ -220,7 +251,7 @@ def decode_step(params, cfg: ARConfig, cache: KVCache, tokens, step: int,
             hidden, k_rows, v_rows = out
             logits = _head(params, hidden, cfg, compute_dtype)
         return logits, _write_rows(cache, k_rows, v_rows)
-    h_, dh = cfg.n_head, cfg.d_head
+    h_, dh = local_count(cfg.n_head, tp, "heads"), cfg.d_head
     x = _embed_step(params, tokens, step)
     bias = torch.where(cache.valid, 0.0, NEG_INF)[:, None, :]     # (B,1,C)
     scale = float(dh) ** 0.5
@@ -244,23 +275,23 @@ def decode_step(params, cfg: ARConfig, cache: KVCache, tokens, step: int,
         ctx = (torch.einsum("bhc,bchd->bhd", e_cache.to(qc.dtype).float(),
                             v4.to(qc.dtype).float())
                + e_self * v_new.float()) / denom
-        attn = pdot(ctx.reshape(b, h_ * dh), block["proj_w"],
-                    compute_dtype) + block["proj_b"]
+        attn = _row_parallel(ctx.reshape(b, h_ * dh), block["proj_w"],
+                             compute_dtype, None, tp) + block["proj_b"]
         x = x + attn
         y = layer_norm(x, block["ln2_w"], block["ln2_b"], cfg.ln_eps)
         y = gelu(pdot(y, block["fc_w"], compute_dtype) + block["fc_b"])
-        x = x + pdot(y, block["fc_proj_w"], compute_dtype) \
-            + block["fc_proj_b"]
+        x = x + _row_parallel(y, block["fc_proj_w"], compute_dtype, None,
+                              tp) + block["fc_proj_b"]
         k_rows.append(k_new.reshape(b, h_ * dh))
         v_rows.append(v_new.reshape(b, h_ * dh))
-    logits = _head(params, x, cfg, compute_dtype)
+    logits = _head(params, x, cfg, compute_dtype, tp)
     return logits, _write_rows(cache, torch.stack(k_rows),
                                torch.stack(v_rows))
 
 
 def decode_sample_step(params, cfg: ARConfig, cache: KVCache, tokens,
                        step: int, u, compute_dtype=None,
-                       sampler: tuple = DEFAULT_SAMPLER
+                       sampler: tuple = DEFAULT_SAMPLER, split_rows=None
                        ) -> Tuple[torch.Tensor, KVCache]:
     """decode_step plus the full sampler in kernel A against pre-drawn
     uniforms u (B, 1) f32. Returns (sampled tokens (B,) int32, cache)."""
@@ -271,12 +302,13 @@ def decode_sample_step(params, cfg: ARConfig, cache: KVCache, tokens,
         params["blocks"], cache.k, cache.v, bias_row, x.float(),
         head=params["head_pack"],
         prev_u=(tokens.reshape(b, 1).to(torch.int32), u.reshape(b, 1)),
-        sampler=sampler, n_head=cfg.n_head, eps=cfg.ln_eps)
+        sampler=sampler, n_head=cfg.n_head, eps=cfg.ln_eps,
+        split_rows=split_rows)
     return tok[:, 0], _write_rows(cache, k_rows, v_rows)
 
 
 def latent_forward(params, cfg: ARConfig, text_ids, text_valid, mel_ids,
-                   voice, compute_dtype=None) -> torch.Tensor:
+                   voice, compute_dtype=None, tp=None) -> torch.Tensor:
     """Full-sequence pass over [latent | text | 502 mel codes]; returns
     the (B, 500, D) speech-conditioning latents (mel positions 0..501)."""
     b, t = text_ids.shape
@@ -290,6 +322,6 @@ def latent_forward(params, cfg: ARConfig, text_ids, text_valid, mel_ids,
                            text_valid,
                            torch.ones((b, m), dtype=torch.bool, device=dev)],
                           dim=1)
-    h, _, _ = transformer(params, x, seq_valid, cfg, compute_dtype)
+    h, _, _ = transformer(params, x, seq_valid, cfg, compute_dtype, tp)
     h = _latent_head(params, h, cfg)
     return h[:, 1 + t:1 + t + m - 2]

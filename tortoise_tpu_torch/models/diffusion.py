@@ -15,11 +15,23 @@ attention goes through a kernel of ``ops.cuda.flash_attention`` — kernel
 B when the packed route takes the head layout (``use_packed``), else
 kernel D1 (the JAX package's fallback ``flash_attention`` route): on a
 CUDA tensor the hand-written kernel, on the CPU its plain version.
+
+Tensor parallelism (``tp``, an ``AxisGroup`` on the mesh's "tp" axis,
+with the tree from ``parallel.shard_tree``): each rank holds n_head/tp
+heads of every attention (kernel B or D1 runs on them, with their slice
+of the rel-pos table) and C/tp hidden channels of every resblock (its
+n_groups/tp groups normalize locally, its channels of the FiLM scale and
+shift apply); attn_proj and res_out_conv are row-parallel products,
+all-reduced in f32 before their bias. On the int8 plane those products
+quantize their activations on the whole row's absmax (a MAX over tp) and
+all-reduce their exact integer sums before the scales apply, so they
+equal the single rank's products bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from tortoise_tpu_torch.config import DiffusionConfig
 from tortoise_tpu_torch.ops.basic import group_norm_tc, pdot, pdot_int8act, silu
@@ -29,6 +41,7 @@ from tortoise_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_packed,
 )
 from tortoise_tpu_torch.ops.relpos import relpos_bias
+from tortoise_tpu_torch.parallel.mesh import local_count
 
 NEG_INF = -1e30
 
@@ -45,6 +58,25 @@ def _linear(x, w, b, compute_dtype=None, out_dtype=None):
     return pdot(x, w.T, compute_dtype) + b
 
 
+def _row_linear(x, w, b, compute_dtype, out_dtype, tp):
+    """``_linear`` for a row-parallel weight: under tp this rank's partial
+    product in f32, all-reduced, then cast and biased as ``_linear``
+    does."""
+    if tp is None:
+        return _linear(x, w, b, compute_dtype, out_dtype)
+    if isinstance(w, tuple):
+        out = pdot_int8act(x, w, _row_max(tp), tp.all_reduce)
+    else:
+        out = tp.all_reduce(pdot(x, w.T, compute_dtype, torch.float32))
+    if out_dtype is not None:
+        return out.to(out_dtype) + b.to(out_dtype)
+    return out + b
+
+
+def _row_max(tp):
+    return lambda absmax: tp.all_reduce(absmax, op=dist.ReduceOp.MAX)
+
+
 def use_packed(cfg: DiffusionConfig) -> bool:
     """True when the attention runs kernel B (flash on, even heads, and
     6*d_head a multiple of 128, as in the JAX package)."""
@@ -58,11 +90,11 @@ def _layer(stack, l: int) -> dict:
 
 
 def _attention(block, x, buckets, cfg: DiffusionConfig, mask=None,
-               compute_dtype=None):
+               compute_dtype=None, tp=None):
     """Rel-pos attention block over (B, T, C); mask (B, T) bool or None;
     buckets (T, T) ids (used by the plain path only)."""
     b, t, c = x.shape
-    h, dh = cfg.n_head, cfg.d_head
+    h, dh = local_count(cfg.n_head, tp, "heads"), cfg.d_head
     y = group_norm_tc(x, cfg.n_groups, block["attn_norm_w"],
                       block["attn_norm_b"], cfg.gn_eps, mask=mask,
                       fast=compute_dtype is not None)
@@ -95,15 +127,16 @@ def _attention(block, x, buckets, cfg: DiffusionConfig, mask=None,
         probs = torch.softmax(scores.float(), dim=-1)
         ctx = pdot(probs.to(q.dtype), v, compute_dtype)
         merged = ctx.permute(0, 2, 1, 3).reshape(b, t, h * dh)
-    out = _linear(merged, block["attn_proj_w"], block["attn_proj_b"],
-                  compute_dtype, out_dtype=compute_dtype)
+    out = _row_linear(merged, block["attn_proj_w"], block["attn_proj_b"],
+                      compute_dtype, compute_dtype, tp)
     return x + out.to(x.dtype)
 
 
 def _resblock(block, x, time_emb, cfg: DiffusionConfig, mask=None,
-              compute_dtype=None):
+              compute_dtype=None, tp=None):
     """FiLM resblock over (B, T, C); time_emb (B, C)."""
     fast = compute_dtype is not None
+    groups = local_count(cfg.n_groups, tp, "groups")
     y = group_norm_tc(x, cfg.n_groups, block["res_in_norm_w"],
                       block["res_in_norm_b"], cfg.gn_eps, mask=mask,
                       fast=fast)
@@ -112,7 +145,10 @@ def _resblock(block, x, time_emb, cfg: DiffusionConfig, mask=None,
     emb = _linear(silu(time_emb), block["res_emb_w"], block["res_emb_b"],
                   compute_dtype)
     scale, shift = torch.chunk(emb.to(y.dtype), 2, dim=-1)
-    y = group_norm_tc(y, cfg.n_groups, block["res_out_norm_w"],
+    if tp is not None:  # this rank's channels of the FiLM
+        lo, hi = tp.split(scale.shape[-1])
+        scale, shift = scale[..., lo:hi], shift[..., lo:hi]
+    y = group_norm_tc(y, groups, block["res_out_norm_w"],
                       block["res_out_norm_b"], cfg.gn_eps, mask=mask,
                       fast=fast)
     y = silu(y * (1.0 + scale)[:, None, :] + shift[:, None, :])
@@ -121,9 +157,20 @@ def _resblock(block, x, time_emb, cfg: DiffusionConfig, mask=None,
         # k3 conv or they leak into the last valid frame
         y = torch.where(mask[:, :, None], y, torch.zeros((), dtype=y.dtype,
                                                          device=y.device))
-    y = conv1d_nwc(y, block["res_out_conv_w"], block["res_out_conv_b"],
-                   padding=1, compute_dtype=compute_dtype,
-                   out_dtype=compute_dtype)
+    if tp is None:
+        y = conv1d_nwc(y, block["res_out_conv_w"], block["res_out_conv_b"],
+                       padding=1, compute_dtype=compute_dtype,
+                       out_dtype=compute_dtype)
+    else:  # row-parallel: all-reduce, then the bias as conv1d_nwc adds it
+        w = block["res_out_conv_w"]
+        if isinstance(w, tuple):  # the exact integer sums are reduced
+            y = conv1d_nwc(y, w, padding=1, row_max=_row_max(tp),
+                           reduce=tp.all_reduce)
+        else:
+            y = tp.all_reduce(conv1d_nwc(y, w, padding=1,
+                                         compute_dtype=compute_dtype))
+        od, bias = compute_dtype, block["res_out_conv_b"]
+        y = y.to(od) + bias.to(od) if od is not None else y + bias
     if mask is not None:
         y = torch.where(mask[:, :, None], y, torch.zeros((), dtype=y.dtype,
                                                          device=y.device))
@@ -131,7 +178,7 @@ def _resblock(block, x, time_emb, cfg: DiffusionConfig, mask=None,
 
 
 def latent_conditioner(params, cfg: DiffusionConfig, latents, lat_buckets,
-                       lat_mask=None, compute_dtype=None):
+                       lat_mask=None, compute_dtype=None, tp=None):
     """AR latents (B, L, 1024) -> conditioned code embedding (B, L, 1024)."""
     x = latents
     if lat_mask is not None:
@@ -140,7 +187,7 @@ def latent_conditioner(params, cfg: DiffusionConfig, latents, lat_buckets,
                    padding=1, compute_dtype=compute_dtype)
     for l in range(cfg.n_latent_cond_blocks):
         x = _attention(_layer(params["latent_blocks"], l), x, lat_buckets,
-                       cfg, lat_mask, compute_dtype)
+                       cfg, lat_mask, compute_dtype, tp)
     x = group_norm_tc(x, cfg.n_groups, params["code_norm_w"],
                       params["code_norm_b"], cfg.gn_eps, mask=lat_mask,
                       fast=compute_dtype is not None)
@@ -154,23 +201,24 @@ def time_mlp(params, t_emb, compute_dtype=None):
     return _linear(h, params["time_w1"], params["time_b1"], compute_dtype)
 
 
-def _diffusion_layer(layer, x, time_emb, buckets, cfg, mask, compute_dtype):
-    x = _resblock(layer, x, time_emb, cfg, mask, compute_dtype)
-    return _attention(layer, x, buckets, cfg, mask, compute_dtype)
+def _diffusion_layer(layer, x, time_emb, buckets, cfg, mask, compute_dtype,
+                     tp=None):
+    x = _resblock(layer, x, time_emb, cfg, mask, compute_dtype, tp)
+    return _attention(layer, x, buckets, cfg, mask, compute_dtype, tp)
 
 
 def integrate_code(params, cfg: DiffusionConfig, code_emb, time_emb,
-                   out_buckets, mask=None, compute_dtype=None):
+                   out_buckets, mask=None, compute_dtype=None, tp=None):
     """The conditioning_timestep_integrator layers, time-major."""
     x = code_emb
     for l in range(cfg.n_integrator_layers):
         x = _diffusion_layer(_layer(params["integrator"], l), x, time_emb,
-                             out_buckets, cfg, mask, compute_dtype)
+                             out_buckets, cfg, mask, compute_dtype, tp)
     return x
 
 
 def trunk(params, cfg: DiffusionConfig, noisy_mel, code_emb, time_emb,
-          out_buckets, mask=None, compute_dtype=None):
+          out_buckets, mask=None, compute_dtype=None, tp=None):
     """Noisy mel (B, T, 100) + integrated code emb (B, T, 1024) ->
     (B, T, 200) [means | var fracs], time-major."""
     x = conv1d_nwc(noisy_mel, params["inp_w"], params["inp_b"], padding=1,
@@ -180,10 +228,10 @@ def trunk(params, cfg: DiffusionConfig, noisy_mel, code_emb, time_emb,
                 compute_dtype, out_dtype=compute_dtype)
     for l in range(cfg.n_main_layers):
         x = _diffusion_layer(_layer(params["layers"], l), x, time_emb,
-                             out_buckets, cfg, mask, compute_dtype)
+                             out_buckets, cfg, mask, compute_dtype, tp)
     for l in range(cfg.n_tail_resblocks):
         x = _resblock(_layer(params["tail"], l), x, time_emb, cfg, mask,
-                      compute_dtype)
+                      compute_dtype, tp)
     x = group_norm_tc(x, cfg.n_groups, params["out_norm_w"],
                       params["out_norm_b"], cfg.gn_eps, mask=mask,
                       fast=compute_dtype is not None)
@@ -196,12 +244,12 @@ def trunk(params, cfg: DiffusionConfig, noisy_mel, code_emb, time_emb,
 
 def code_embeddings(params, cfg: DiffusionConfig, latents, lat_buckets,
                     out_len_pad: int, lat_len=None, out_len=None,
-                    lat_mask=None, compute_dtype=None):
+                    lat_mask=None, compute_dtype=None, tp=None):
     """Loop-invariant part of the denoiser: the (B, 1024, Tpad)
     conditioned and unconditioned code embeddings. lat_len/out_len are the
     true lengths (ints or (B,) tensors) for the nearest-upscale indices."""
     cond = latent_conditioner(params, cfg, latents, lat_buckets, lat_mask,
-                              compute_dtype)
+                              compute_dtype, tp)
     b, n_lat, _ = cond.shape
     dev = cond.device
     ar_t = torch.arange(out_len_pad, device=dev)
@@ -221,7 +269,7 @@ def code_embeddings(params, cfg: DiffusionConfig, latents, lat_buckets,
 
 
 def denoise(params, cfg: DiffusionConfig, x, code_emb, t_orig, out_buckets,
-            mask=None, compute_dtype=None):
+            mask=None, compute_dtype=None, tp=None):
     """One denoiser evaluation. x (B, 100, T) noisy mel; code_emb
     (B, 1024, T) — cond/uncond stacked as a batch of 2 for CFG; t_orig
     the ORIGINAL timestep id. Returns (B, 200, T) float32."""
@@ -238,7 +286,7 @@ def denoise(params, cfg: DiffusionConfig, x, code_emb, t_orig, out_buckets,
         code_emb = code_emb.to(compute_dtype)
         time_emb = time_emb.to(compute_dtype)
     code = integrate_code(params, cfg, code_emb.transpose(1, 2), time_emb,
-                          out_buckets, mask, compute_dtype)
+                          out_buckets, mask, compute_dtype, tp)
     out = trunk(params, cfg, x.transpose(1, 2), code, time_emb, out_buckets,
-                mask, compute_dtype)
+                mask, compute_dtype, tp)
     return out.transpose(1, 2).float()

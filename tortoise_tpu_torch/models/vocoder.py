@@ -10,6 +10,12 @@ chunk, or with ``cfg.use_pallas_lvc`` as kernel E (``ops.cuda.lvc``),
 which fuses it with the gate and the residual add. With a bucketed
 length (``mel_len``) every stage masks past the true length and the
 input reflection is written at the true edges.
+
+Tensor parallelism (``tp``, an ``AxisGroup`` on the mesh's "tp" axis,
+with the tree from ``parallel.shard_tree``): each rank computes its
+output channels of the kernel predictor's kernel and bias convs, the
+channels are gathered before the per-block reshape, and the trunk (and
+kernel E) runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ def reflect_extend(x, true_len, pad: int):
 
 
 def kernel_predictor(stage, mel, cfg: VocoderConfig, valid_len=None,
-                     compute_dtype=None):
+                     compute_dtype=None, tp=None):
     """Padded mel (B, n_mel, L) -> (kernels (B, nblk, C_in, C_out, K, L),
     biases (B, nblk, C_out, L))."""
     b, _, l = mel.shape
@@ -74,13 +80,15 @@ def kernel_predictor(stage, mel, cfg: VocoderConfig, valid_len=None,
                      padding=1, compute_dtype=compute_dtype)
     biases = conv1d(c, stage["kp_bias_w"], stage["kp_bias_b"], padding=1,
                     compute_dtype=compute_dtype)
+    if tp is not None:  # this rank's output channels -> all of them
+        kernels, biases = tp.all_gather(kernels, 1), tp.all_gather(biases, 1)
     kernels = kernels.reshape(b, nblk, cfg.ch, cfg.lvc_out_ch,
                               cfg.lvc_kernel, l)
     return kernels, biases.reshape(b, nblk, cfg.lvc_out_ch, l)
 
 
 def vocoder_forward(params, cfg: VocoderConfig, mel, noise, mel_len=None,
-                    compute_dtype=None):
+                    compute_dtype=None, tp=None):
     """mel (B, n_mel, M) denormalized + pad frames (+ zero bucket padding
     with `mel_len` the true M); noise (B, noise_ch, M). Returns audio
     (B, M * prod(strides) - 6)."""
@@ -108,7 +116,7 @@ def vocoder_forward(params, cfg: VocoderConfig, mel, noise, mel_len=None,
         valid = None if mel_len is None else mel_len * up
         x = _mask_time(x, valid)
         kernels, biases = kernel_predictor(stage, mel, cfg, mel_len,
-                                           compute_dtype)
+                                           compute_dtype, tp)
         hop = cfg.hop_sizes[i]
         for c, dil in enumerate(cfg.dilations):
             y = _mask_time(leaky_relu(x, cfg.leaky_slope), valid)

@@ -58,22 +58,36 @@ def pdot(x: torch.Tensor, w, compute_dtype=None, out_dtype=None):
     return out.to(out_dtype)
 
 
-def quantize_rows(x: torch.Tensor):
+def quantize_rows(x: torch.Tensor, row_max=None):
     """Symmetric per-row int8 quantization of activations: returns
-    (xq as float32 integers in [-127, 127], row scale (..., 1))."""
+    (xq as float32 integers in [-127, 127], row scale (..., 1)).
+    ``row_max`` maps the rows' absmax to the one to quantize by: under
+    tensor parallelism x holds a slice of each row's channels and
+    ``row_max`` takes the MAX over the ranks, so every rank quantizes on
+    the grid of the whole row."""
     absmax = x.abs().amax(dim=-1, keepdim=True)
+    if row_max is not None:
+        absmax = row_max(absmax)
     s_row = absmax.float().clamp_min(1e-12)
     s_row = s_row / torch.full_like(s_row, 127.0)  # see quantize_cols
     xq = torch.clamp(torch.round(x.float() / s_row), -127, 127)
     return xq, s_row
 
 
-def pdot_int8act(x: torch.Tensor, w) -> torch.Tensor:
+def pdot_int8act(x: torch.Tensor, w, row_max=None,
+                 reduce=None) -> torch.Tensor:
     """int8 x int8 product with dynamic per-row activation quantization
-    (``w`` a ``(w_int8, scale)`` pair). Returns float32."""
+    (``w`` a ``(w_int8, scale)`` pair; ``row_max`` as in
+    ``quantize_rows``). ``reduce`` maps the exact integer sums before
+    the scales apply: under tensor parallelism the all-reduce of the
+    ranks' partial sums, which keeps the product the single rank's bit
+    for bit. Returns float32."""
     wq, scale = w
-    xq, s_row = quantize_rows(x)
-    return mm_bf16(xq, wq) * s_row * scale
+    xq, s_row = quantize_rows(x, row_max)
+    acc = mm_bf16(xq, wq)
+    if reduce is not None:
+        acc = reduce(acc)
+    return acc * s_row * scale
 
 
 def quantize_cols(w: torch.Tensor):

@@ -32,11 +32,12 @@ def conv1d(x, w, b=None, stride: int = 1, padding: int = 0,
 
 def conv1d_nwc(x, w, b=None, stride: int = 1, padding: int = 0,
                dilation: int = 1, groups: int = 1, compute_dtype=None,
-               out_dtype=None):
+               out_dtype=None, row_max=None, reduce=None):
     """Time-major conv: x (N, T, C_in) -> (N, T', C_out). ``w`` may be an
     int8 pair (wmat (K*C_in, C_out) int8, scale) — then the product runs
     with per-row activation quantization, one shifted matmul per tap
-    (k = 2*padding + 1)."""
+    (k = 2*padding + 1); ``row_max`` and ``reduce`` (given the stacked
+    taps' integer sums) as in ``ops.basic.pdot_int8act``."""
     if compute_dtype is None:
         out_dtype = None
     if isinstance(w, tuple):
@@ -45,18 +46,22 @@ def conv1d_nwc(x, w, b=None, stride: int = 1, padding: int = 0,
         if stride != 1 or dilation != 1 or groups != 1:
             raise ValueError("int8 conv supports stride=dilation=groups=1")
         if k == 1:
-            xq, s_row = quantize_rows(x)
-            out = mm_bf16(xq, wq) * s_row * scale
+            xq, s_row = quantize_rows(x, row_max)
+            acc = mm_bf16(xq, wq)
+            out = (acc if reduce is None else reduce(acc)) * s_row * scale
         else:
             t = x.shape[1]
-            xq, s_row = quantize_rows(x)
+            xq, s_row = quantize_rows(x, row_max)
             xqp = F.pad(xq, (0, 0, padding, padding))
             srp = F.pad(s_row, (0, 0, padding, padding))
             cin = wq.shape[0] // k
             wq3 = wq.reshape(k, cin, wq.shape[-1])
+            taps = [mm_bf16(xqp[:, j:j + t], wq3[j]) for j in range(k)]
+            if reduce is not None:
+                taps = reduce(torch.stack(taps)).unbind(0)
             out = None
             for j in range(k):
-                part = mm_bf16(xqp[:, j:j + t], wq3[j]) * srp[:, j:j + t]
+                part = taps[j] * srp[:, j:j + t]
                 out = part if out is None else out + part
             out = out * scale
         if out_dtype is not None:

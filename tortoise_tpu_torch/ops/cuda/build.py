@@ -36,7 +36,7 @@ SIGNATURES = {
     "tt_flash_tma": (_P,) * 6 + (_I,) * 4 + (_P, _P, _F, _I, _P),
     "tt_flash_bhtd": (_P,) * 5 + (_I,) * 7 + (_P,) * 3 + (_F, _I, _P),
     "tt_lvc_gated_residual": (_P,) * 5 + (_I,) * 9 + (_LL, _LL, _P),
-    "tt_decode_trunk": ((_I,) * 6 + (_F,) + (_P,) * 22 + (_I,) + (_P,) * 10
+    "tt_decode_trunk": ((_I,) * 7 + (_F,) + (_P,) * 22 + (_I,) + (_P,) * 10
                         + (_F, _I, _F, _F) + (_P,) * 4),
     "tt_decode_partial_floats": (_I,) * 4,
     "tt_decode_set_trace": (_P,),

@@ -165,12 +165,16 @@ def fused_decode_trunk(blocks: dict, cache_k: torch.Tensor,
                        x: torch.Tensor, head: Optional[dict] = None,
                        prev_u: Optional[tuple] = None,
                        sampler: Optional[tuple] = None, n_head: int = 16,
-                       eps: float = 1e-5) -> Tuple[torch.Tensor, ...]:
+                       eps: float = 1e-5, split_rows: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, ...]:
     """Kernel A. Returns (hidden (B, D) f32, k_rows (L, B, HD), v_rows)
     in the cache dtype; with ``head`` also (B, Vp) f32 logits; with
     ``prev_u`` = ((B, 1) int32 previous tokens, (B, 1) f32 uniforms) and
     ``sampler`` = (temperature, top_k, top_p_drop, penalty) also (B, 1)
-    int32 sampled tokens."""
+    int32 sampled tokens. ``split_rows``: the batch these B rows belong
+    to (a dp rank's global batch); the cache attention is split over the
+    blocks as for that batch, so each row's bits are those of the whole
+    batch's run."""
     if sampler is not None and sampler[1] > MAX_TOPK:
         raise ValueError(f"fused sampler supports top_k <= {MAX_TOPK}; got "
                          f"top_k={sampler[1]}")
@@ -225,7 +229,7 @@ def fused_decode_trunk(blocks: dict, cache_k: torch.Tensor,
             out = out + (tok,)
     scr = _step_scratch(bsz, d, f, vp, dev)
     build.check(lib.tt_decode_trunk(
-        L, bsz, c, d, n_head, f, eps, xw.data_ptr(),
+        L, bsz, c, d, n_head, f, split_rows or bsz, eps, xw.data_ptr(),
         _arg(bias_row, f32, (bsz, c), "bias_row"),
         vec("ln1_w", d), vec("ln1_b", d), aw, asc, vec("attn_b", 3 * d),
         pw, psc, vec("proj_b", d), vec("ln2_w", d), vec("ln2_b", d),

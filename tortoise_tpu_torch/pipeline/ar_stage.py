@@ -16,6 +16,17 @@ Two sampler planes:
 
 Sequence post-processing (apply_padding, trim_keep_lengths, trim_latents)
 and the text-bucket rules are pure-Python copies of the JAX package's.
+
+Under a mesh (``autoregressive_batch(mesh=)``) each rank runs its rows
+of the "dp" split, and the heads of its "tp" place (``models.ar``). Every
+rank draws each step's GLOBAL (B, 1) uniforms and keeps its rows; the
+all-rows-stopped rule is global (a MIN over dp of each step's flag);
+tokens, lengths and latents are gathered, so every rank returns every
+row. On a pure-dp mesh kernel A runs on each rank's rows (the dp
+plane); under tp it cannot (it holds whole layers and the whole-vocab
+head pack) and the loop takes decode_step and the plain sampler; kernel
+C runs on each rank's rows and heads when they pass
+``ar.flash_prefill_on``.
 """
 
 from __future__ import annotations
@@ -32,9 +43,18 @@ from tortoise_tpu_torch.config import ARConfig
 from tortoise_tpu_torch.models import ar
 from tortoise_tpu_torch.ops import sampling as S
 from tortoise_tpu_torch.ops.basic import quantize_cols, quantize_cols_host
+from tortoise_tpu_torch.parallel.mesh import axis_group
+from tortoise_tpu_torch.parallel.sharding import ar_param_specs
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
-from tortoise_tpu_torch.pipeline.common import cached_cast, resolve_device, sync
+from tortoise_tpu_torch.pipeline.common import (
+    cached_cast,
+    draw_rows,
+    dp_rows,
+    resolve_device,
+    shard_cast,
+    sync,
+)
 
 _MATMUL_WEIGHTS = ("attn_w", "proj_w", "fc_w", "fc_proj_w")
 TEXT_BUCKETS = (32, 64, 128, 192, 256, 320, 404)
@@ -232,26 +252,43 @@ def draw_uniform(generator, shape, device) -> torch.Tensor:
                       dtype=torch.float32)
 
 
-def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
-              cache, generator, compute_dtype, sampler):
-    """On-device sampling loop. Returns (tokens (B, steps) int32 on the
-    host, lengths (B,)): lengths[b] counts ids appended to sequence b
-    (stop included) under the reference's append-unless-finished rule;
-    the loop ends when every row samples stop in the same step. One
-    (B, 1) uniform draw per step, the first one included, like the JAX
-    package's key chain (ar_stage.py:299-325).
+def _first_stop(flags, dp):
+    """Index of the first step whose all-rows-stopped flag holds on every
+    dp rank (a MIN over dp of the window ``flags``), or None."""
+    if dp is not None:
+        flags = dp.all_reduce(flags, op=torch.distributed.ReduceOp.MIN)
+    hit = torch.nonzero(flags).flatten()
+    return int(hit[0]) if hit.numel() else None
 
-    The host reads the all-stop flag only every ``STOP_CHECK_STEPS``
-    steps: a read waits for the device, so reading it every step would
-    keep each step's host work from overlapping the step before. Steps
-    run past the all-stop step are dropped (their draws come after every
-    kept one)."""
+
+def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
+              cache, generator, compute_dtype, sampler, rows=None, dp=None,
+              tp=None):
+    """On-device sampling loop over this rank's rows. Returns (tokens
+    (B, steps) int32, lengths (B,)) on the device: lengths[b] counts ids
+    appended to sequence b (stop included) under the reference's
+    append-unless-finished rule; the loop ends when every row (of every
+    dp rank) samples stop in the same step. One global (B, 1) uniform
+    draw per step, the first one included, like the JAX package's key
+    chain (ar_stage.py:299-325); ``rows`` picks this rank's part of it.
+
+    Each step records its all-rows-stopped flag on the device; the host
+    reads the flags of the last ``STOP_CHECK_STEPS`` steps at once (a
+    read waits for the device, so reading each step would keep the
+    host's enqueue from overlapping the step before), after a MIN over
+    ``dp``. Steps run past the stop step are dropped (their draws come
+    after every kept one)."""
     b = first_logits.shape[0]
     dev = first_logits.device
     stop = cfg.stop_mel_token
+    rows = rows or slice(0, b)
+    n_global = b if dp is None else b * dp.size
+    # kernel A splits its work as for the whole batch: a row's bits do
+    # not depend on the dp size
+    split = None if dp is None else n_global
 
     def draw_u():
-        return draw_uniform(generator, (b, 1), dev)
+        return draw_rows(draw_uniform, generator, (n_global, 1), dev, rows)
 
     probs, ids = S.process_logits_topk(first_logits, first_penalty_ids,
                                        *sampler)
@@ -259,33 +296,43 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
     tokens = [tok]
     finished = tok == stop
     lengths = torch.ones((b,), dtype=torch.int32, device=dev)
+    # false under tp: a tp rank's params hold no head pack
     fuse = ar.can_fuse_sampling(params, cfg, compute_dtype, b, sampler)
-    # the step count at which every row last sampled stop, or the maximum
-    end = torch.where((tok == stop).all(), 1, cfg.max_decode_steps)
-    step = 1
+    # flags[n - 1]: every row sampled stop in the step that made n tokens
+    flags = torch.zeros((cfg.max_decode_steps,), dtype=torch.int32,
+                        device=dev)
+    flags[0] = (tok == stop).all()
+    end, checked, step = None, 0, 1
     while step < cfg.max_decode_steps:
-        if step % STOP_CHECK_STEPS == 1 and int(end) <= step:
-            break
+        if step % STOP_CHECK_STEPS == 1:
+            hit = _first_stop(flags[checked:step], dp)
+            if hit is not None:
+                end = checked + hit + 1
+                break
+            checked = step
         prev = tok
         u = draw_u()
         if fuse:
             tok, cache = ar.decode_sample_step(params, cfg, cache, prev,
                                                step - 1, u, compute_dtype,
-                                               sampler=sampler)
+                                               sampler=sampler,
+                                               split_rows=split)
         else:
             logits, cache = ar.decode_step(params, cfg, cache, prev,
-                                           step - 1, compute_dtype)
+                                           step - 1, compute_dtype, tp,
+                                           split)
             probs, ids = S.process_logits_topk(logits, prev[:, None].long(),
                                                *sampler)
             tok = S.sample_from_topk_u(u, probs, ids)
         tokens.append(tok)
         lengths = torch.where(finished, lengths, lengths + 1)
         finished = finished | (tok == stop)
+        flags[step] = (tok == stop).all()
         step += 1
-        end = torch.where((end == cfg.max_decode_steps) & (tok == stop).all(),
-                          step, end)
-    return (torch.stack(tokens[:int(end)], dim=1).cpu().numpy(),
-            lengths.cpu().numpy())
+    if end is None:
+        hit = _first_stop(flags[checked:step], dp)
+        end = step if hit is None else checked + hit + 1
+    return torch.stack(tokens[:end], dim=1), lengths
 
 
 @torch.inference_mode()
@@ -294,7 +341,8 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
                          int8_weights: bool = False,
                          return_device_latents: bool = False,
                          substage_timings: Optional[dict] = None,
-                         sampler_params=None, device=None) -> Tuple:
+                         sampler_params=None, device=None,
+                         mesh=None) -> Tuple:
     """On-device ("jax"-plane) AR stage over the rows of ``tokens_list``
     (ragged lengths share the longest row's text bucket, masked), with
     one shared (d,) voice or per-row (B, d) voices. Returns
@@ -302,7 +350,8 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     (B, 500, D) on the device, keep_lens, padded). On the bf16 + int8
     plane each decode step is one kernel-A call when B <= 16 and top_k <=
     128 (``ar.can_fuse_sampling``); otherwise decode_step and the plain
-    sampler."""
+    sampler. ``mesh`` (``parallel.make_mesh``): this rank runs its rows
+    and heads and returns every row (see the module docstring)."""
     device = resolve_device(device)
     sampler = normalize_sampler(sampler_params)
     tokens_list = [list(map(int, t)) for t in tokens_list]
@@ -312,6 +361,9 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     b = len(tokens_list)
     bucket = pick_bucket(max(len(t) for t in tokens_list))
     cfg = size_cache(cfg, bucket)
+    rows = dp_rows(mesh, b, "autoregressive_batch")
+    dp = axis_group(mesh, "dp") if rows != slice(0, b) else None
+    tp = axis_group(mesh, "tp")
     text_ids = np.zeros((b, bucket), np.int64)
     text_valid = np.zeros((b, bucket), bool)
     for i, toks in enumerate(tokens_list):
@@ -322,35 +374,46 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     voices = np.asarray(voices, np.float32)
     if voices.ndim == 1:
         voices = np.repeat(voices[None], b, axis=0)
-    voices = torch.as_tensor(voices, device=device)
-    params = cast_matmul_weights(params, compute_dtype, int8_weights, device)
-    text_ids = torch.as_tensor(text_ids, device=device)
-    text_valid = torch.as_tensor(text_valid, device=device)
+    voices = torch.as_tensor(voices[rows], device=device)
+    full = cast_matmul_weights(params, compute_dtype, int8_weights, device)
+    if tp is not None:  # the head pack holds the whole vocab
+        full = dict(full, head_pack=None)
+    params = shard_cast(params, ("armw", str(compute_dtype), int8_weights),
+                        full, ar_param_specs, mesh, device)
+    text_ids = torch.as_tensor(text_ids[rows], device=device)
+    text_valid = torch.as_tensor(text_valid[rows], device=device)
     if st is not None:
         sync(device)
         st["ar_cast_s"] = time.monotonic() - t_sub
         t_sub = time.monotonic()
     logits, cache = ar.prefill(params, cfg, text_ids, text_valid, voices,
-                               compute_dtype)
+                               compute_dtype, tp)
     if st is not None:
         sync(device)
         st["ar_prefill_s"] = time.monotonic() - t_sub
         t_sub = time.monotonic()
     # the first step penalizes the prefill filler ids {1, start}
-    first_ids = torch.ones((b, bucket + 2), dtype=torch.long, device=device)
+    n = text_ids.shape[0]
+    first_ids = torch.ones((n, bucket + 2), dtype=torch.long, device=device)
     first_ids[:, -1] = cfg.start_mel_token
     gen = common.make_generator(seed, device)
     toks, lengths = _generate(params, cfg, logits, first_ids, cache, gen,
-                              compute_dtype, sampler)
+                              compute_dtype, sampler, rows, dp, tp)
+    if dp is not None:
+        toks, lengths = dp.all_gather(toks), dp.all_gather(lengths)
+    toks, lengths = toks.cpu().numpy(), lengths.cpu().numpy()
     if st is not None:
         st["ar_decode_loop_s"] = time.monotonic() - t_sub
         st["ar_decode_steps"] = int(toks.shape[1])
         t_sub = time.monotonic()
     sequences = [[int(t) for t in toks[i, :lengths[i]]] for i in range(b)]
     padded = [apply_padding(s, cfg) for s in sequences]
-    mel_ids = torch.as_tensor(np.asarray(padded, np.int64), device=device)
+    mel_ids = torch.as_tensor(np.asarray(padded, np.int64)[rows],
+                              device=device)
     latents = ar.latent_forward(params, cfg, text_ids, text_valid, mel_ids,
-                                voices, compute_dtype)
+                                voices, compute_dtype, tp)
+    if dp is not None:
+        latents = dp.all_gather(latents)
     if st is not None:
         sync(device)
         st["ar_latent_s"] = time.monotonic() - t_sub

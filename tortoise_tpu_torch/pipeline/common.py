@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import threading
+import warnings
 
 import torch
 
@@ -28,6 +29,65 @@ def sync(device) -> None:
     are taken at these points."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def mesh_size(mesh) -> int:
+    """Ranks of a mesh (0 when mesh is None)."""
+    return 0 if mesh is None else mesh.size()
+
+
+def pure_dp(mesh, b: int) -> bool:
+    """The JAX package's admission rule for its per-device kernel planes:
+    every rank on the dp axis and b rows splitting evenly over it. Here
+    it admits the AR dp plane (kernel A on each rank's rows)."""
+    from tortoise_tpu_torch.parallel.mesh import axis_size
+
+    n, dp = mesh_size(mesh), axis_size(mesh, "dp")
+    return n > 1 and n == dp and b % dp == 0
+
+
+def dp_rows(mesh, b: int, who: str = "place_batch") -> slice:
+    """This rank's rows of a b-row batch: its part of the split over the
+    mesh's "dp" axis, or every row (with the JAX package's warning) when
+    b does not divide the dp size, or when there is no dp axis."""
+    from tortoise_tpu_torch.parallel.mesh import axis_group
+
+    dp = axis_group(mesh, "dp")
+    if dp is None:
+        return slice(0, b)
+    if b % dp.size:
+        warnings.warn(
+            f"{who}: batch size {b} does not divide the dp axis "
+            f"({dp.size}); falling back to REPLICATED placement — no data "
+            "parallelism for this array. Use a batch that is a multiple of "
+            "the dp size.", stacklevel=3)
+        return slice(0, b)
+    return slice(*dp.split(b))
+
+
+def draw_rows(draw, generator, shape, device, rows: slice) -> torch.Tensor:
+    """Rows ``rows`` of one GLOBAL draw ``draw(generator, shape, device)``
+    (shape[0] the whole batch): every rank seeds the same stream and
+    draws the whole tensor, so each row gets the numbers it gets in the
+    single-device run. A rank drawing only its own rows would take the
+    first rows' numbers."""
+    return draw(generator, shape, device)[rows]
+
+
+def shard_cast(params, key, full, specs, mesh, device):
+    """``full`` (a stage's device tree cast from the host tree ``params``
+    under cache key ``key``) sliced for this rank's place on the mesh's
+    "tp" axis by the placement tree ``specs(mesh)``, memoized like the
+    casts, per mesh shape and rank. Without a tp axis, ``full``."""
+    from tortoise_tpu_torch.parallel.mesh import axis_size
+    from tortoise_tpu_torch.parallel.sharding import shard_tree
+
+    if axis_size(mesh, "tp") == 1:
+        return full
+    # a tree sliced for one (mesh shape, rank) is another tree on another
+    where = (tuple(mesh.mesh.shape), mesh.mesh_dim_names, mesh.get_rank())
+    return cached_cast(params, (key, "tp") + where,
+                       lambda _: shard_tree(full, specs(mesh), mesh), device)
 
 
 def make_generator(seed: int, device) -> torch.Generator:

@@ -14,6 +14,12 @@ its host-list form) draws from a ``torch.Generator`` through
 package's key chain (diffusion_stage.py:181-182, 237-238);
 ``diffusion(rng=ReferenceRng)`` consumes the mt19937 stream in the
 reference's order.
+
+Under a mesh (``mesh=``) each rank denoises its rows of the "dp" split
+(lengths, buckets and masks are those of the whole batch), drawing each
+GLOBAL noise tensor and keeping its rows, with the heads and channels of
+its "tp" place (``models.diffusion``); the mel is gathered, so every
+rank returns every row.
 """
 
 from __future__ import annotations
@@ -28,13 +34,18 @@ from tortoise_tpu_torch.config import DiffusionConfig, mel_length_for_latents
 from tortoise_tpu_torch.models import diffusion as dmodel
 from tortoise_tpu_torch.ops.basic import quantize_cols, quantize_cols_host
 from tortoise_tpu_torch.ops.relpos import relative_position_buckets
+from tortoise_tpu_torch.parallel.mesh import axis_group
+from tortoise_tpu_torch.parallel.sharding import diffusion_param_specs
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
 from tortoise_tpu_torch.pipeline import schedule as ds
 from tortoise_tpu_torch.pipeline.common import (
     cached_cast,
+    dp_rows,
+    draw_rows,
     resolve_device,
     round_up,
+    shard_cast,
     sync,
 )
 
@@ -79,14 +90,19 @@ def quantize_diffusion_weights(params):
     return out
 
 
-def _prepare_params(params, int8_weights: bool, device="cpu"):
+def _prepare_params(params, int8_weights: bool, device="cpu", mesh=None):
     """Device tree; with int8_weights quantized there after an f32
-    upload. Memoized per (tree, device, plane)."""
+    upload (the whole tree, before any tp slicing takes its part).
+    Memoized per (tree, device, plane, and mesh shape and rank)."""
+    key = "int8" if int8_weights else "device"
     if int8_weights:
-        return cached_cast(params, "int8", lambda p: (
+        full = cached_cast(params, key, lambda p: (
             quantize_diffusion_weights(tree_to_torch(p, device))), device)
-    return cached_cast(params, "device", lambda p: tree_to_torch(p, device),
-                       device)
+    else:
+        full = cached_cast(params, key, lambda p: tree_to_torch(p, device),
+                           device)
+    return shard_cast(params, key, full, diffusion_param_specs, mesh,
+                      device)
 
 
 def draw_normal(generator, shape, device) -> torch.Tensor:
@@ -161,7 +177,7 @@ def _buckets(length: int, cfg: DiffusionConfig, device):
 
 def _denoise_loop(params, cfg, sched, code_emb2, x, out_buckets, out_mask,
                   draw_noise, compute_dtype, variance_swap, progress=None,
-                  report_at=None):
+                  report_at=None, tp=None):
     """The n denoising steps from x; ``progress(done / n)`` fires after
     each step count in ``report_at`` (default: every step)."""
     b = x.shape[0]
@@ -170,7 +186,7 @@ def _denoise_loop(params, cfg, sched, code_emb2, x, out_buckets, out_mask,
         t = n - 1 - i
         out = dmodel.denoise(params, cfg, torch.cat([x, x], dim=0),
                              code_emb2, int(sched["tmap"][t]), out_buckets,
-                             out_mask, compute_dtype)
+                             out_mask, compute_dtype, tp)
         cond_mean, var_frac = out[:b, :cfg.n_mel], out[:b, cfg.n_mel:]
         uncond_mean = out[b:, :cfg.n_mel]
         x = posterior_step(sched, cfg, x, cond_mean, uncond_mean, var_frac,
@@ -190,17 +206,21 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
                            seed: int = 0, variance_swap: bool = True,
                            compute_dtype=None, int8_weights: bool = False,
                            device=None, progress=None,
-                           substage_timings: Optional[dict] = None):
+                           substage_timings: Optional[dict] = None,
+                           mesh=None):
     """Device latents (B, >=L, D) with per-row keep lengths -> the mel as
     a device (B, n_mel, out_pad) tensor plus per-row lengths (numpy), all
     rows in one masked batch. ``progress(fraction)`` fires at 0 and after
     the steps of ``_progress_cuts``. ``substage_timings`` receives the
     walls of the weight cast and of the rest (conditioner plus the
-    denoising loop), synchronising the device at each boundary."""
+    denoising loop), synchronising the device at each boundary. ``mesh``:
+    this rank denoises its rows and heads and returns every row (see the
+    module docstring)."""
     device = resolve_device(device)
     st = substage_timings
     t_sub = time.monotonic()
-    params = _prepare_params(params, int8_weights, device)
+    params = _prepare_params(params, int8_weights, device, mesh)
+    tp = axis_group(mesh, "tp")
     if st is not None:
         sync(device)
         st["diffusion_cast_s"] = time.monotonic() - t_sub
@@ -217,17 +237,22 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
     if lat_in.shape[1] < lat_pad:
         lat_in = torch.nn.functional.pad(
             lat_in, (0, 0, 0, lat_pad - lat_in.shape[1]))
-    lat_mask, out_mask = _masks(lat_lens, out_lens, lat_pad, out_pad, device)
+    # this rank's rows, padded and masked as in the whole batch
+    rows = dp_rows(mesh, b, "diffusion_batch_device")
+    lat_mask, out_mask = (None if m is None else m[rows] for m in _masks(
+        lat_lens, out_lens, lat_pad, out_pad, device))
     sched = schedule_arrays(cfg, device)
     cond, uncond = dmodel.code_embeddings(
-        params, cfg, lat_in, _buckets(lat_pad, cfg, device), out_pad,
-        torch.as_tensor(lat_lens, device=device),
-        torch.as_tensor(out_lens, device=device), lat_mask, compute_dtype)
+        params, cfg, lat_in[rows], _buckets(lat_pad, cfg, device), out_pad,
+        torch.as_tensor(lat_lens[rows], device=device),
+        torch.as_tensor(out_lens[rows], device=device), lat_mask,
+        compute_dtype, tp)
     code_emb2 = torch.cat([cond, uncond], dim=0)
     gen = common.make_generator(seed, device)
 
     def draw_noise():
-        return draw_normal(gen, (b, cfg.n_mel, out_pad), device)
+        return draw_rows(draw_normal, gen, (b, cfg.n_mel, out_pad), device,
+                         rows)
 
     x = draw_noise()
     if out_mask is not None:
@@ -237,7 +262,9 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
     x = _denoise_loop(params, cfg, sched, code_emb2, x,
                       _buckets(out_pad, cfg, device), out_mask, draw_noise,
                       compute_dtype, variance_swap, progress,
-                      set(_progress_cuts(cfg.n_sample_timesteps)[1:]))
+                      set(_progress_cuts(cfg.n_sample_timesteps)[1:]), tp)
+    if rows != slice(0, b):
+        x = axis_group(mesh, "dp").all_gather(x)
     if st is not None:
         sync(device)
         st["diffusion_loop_s"] = time.monotonic() - t_sub
@@ -248,10 +275,11 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
 def diffusion_batch(params, latents_list,
                     cfg: DiffusionConfig = DiffusionConfig(), seed: int = 0,
                     variance_swap: bool = True, compute_dtype=None,
-                    int8_weights: bool = False, device=None, progress=None):
+                    int8_weights: bool = False, device=None, progress=None,
+                    mesh=None):
     """Host list of (L_i, 1024) latents -> list of (100, T_i) host mels,
     decoded together in one masked batch (diffusion_batch_device on the
-    rows zero-padded to the longest one's bucket)."""
+    rows zero-padded to the longest one's bucket; ``mesh`` as there)."""
     device = resolve_device(device)
     lats = [np.asarray(l, np.float32) for l in latents_list]
     if not lats:
@@ -263,7 +291,7 @@ def diffusion_batch(params, latents_list,
         lat_in[i, :l.shape[0]] = l
     mel, out_lens = diffusion_batch_device(
         params, torch.as_tensor(lat_in), lens, cfg, seed, variance_swap,
-        compute_dtype, int8_weights, device, progress)
+        compute_dtype, int8_weights, device, progress, mesh=mesh)
     mel = mel.float().cpu().numpy()
     return [mel[i, :, :out_lens[i]] for i in range(len(lats))]
 

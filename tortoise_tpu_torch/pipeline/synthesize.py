@@ -161,7 +161,7 @@ def synthesize_batch(models: TortoiseModels,
                      tokenizer_method: str = "greedy", progress=None,
                      int8_weights: bool = False, stage_sync: bool = True,
                      materialize: bool = True, sampler_params=None,
-                     device=None) -> List[SynthesisResult]:
+                     device=None, mesh=None) -> List[SynthesisResult]:
     """Batched serving path: one utterance per row of ``tokens_list`` (or
     of ``messages``, tokenized), each stage one batched computation with
     per-row masked lengths. ``voices``: one (d,) latent or path shared by
@@ -172,7 +172,10 @@ def synthesize_batch(models: TortoiseModels,
     package's cuts. ``materialize=False`` (serving) leaves each row's mel and
     latents None. ``stage_sync`` waits for the device at each stage
     boundary so the stage walls in ``timings`` are true; every row gets
-    its own copy of the batch's walls."""
+    its own copy of the batch's walls. ``mesh`` (``parallel.make_mesh``):
+    every rank of the mesh calls this with the same inputs; each stage
+    runs this rank's rows ("dp") and heads or channels ("tp"), and every
+    rank returns every row's result."""
     device = resolve_device(device)
     if tokens_list is None:
         if messages is None:
@@ -185,7 +188,7 @@ def synthesize_batch(models: TortoiseModels,
     voices = _row_voices(voices, models.ar_cfg.d_model)
     timings = {}
     st = timings if stage_sync else None
-    kw = dict(compute_dtype=compute_dtype, device=device)
+    kw = dict(compute_dtype=compute_dtype, device=device, mesh=mesh)
     t0 = time.monotonic()
     lat_dev, keeps, sequences = ar_stage.autoregressive_batch(
         models.ar_params, tokens_list, voices, models.ar_cfg, seed=seed,

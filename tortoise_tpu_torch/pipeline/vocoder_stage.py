@@ -9,6 +9,11 @@ edge. The noise of ``vocoder_batch_device`` / ``vocoder_batch`` is one
 (B, 64, bucket) draw through ``draw_normal``, like the JAX package's
 ``normal(PRNGKey(seed), ...)``; all rows vocode in one pass (the JAX
 package splits batches above 8 rows for the TPU's memory).
+
+Under a mesh (``mesh=``) each rank vocodes its rows of the "dp" split
+with the noise rows of the one global draw, and its kernel-predictor
+channels of the "tp" split (``models.vocoder``); the audio is gathered,
+so every rank returns every row.
 """
 
 from __future__ import annotations
@@ -23,12 +28,17 @@ from tortoise_tpu_torch.config import (
     VocoderConfig,
 )
 from tortoise_tpu_torch.models import vocoder as vmodel
+from tortoise_tpu_torch.parallel.mesh import axis_group
+from tortoise_tpu_torch.parallel.sharding import vocoder_param_specs
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
 from tortoise_tpu_torch.pipeline.common import (
     cached_cast,
+    dp_rows,
+    draw_rows,
     resolve_device,
     round_up,
+    shard_cast,
 )
 
 MEL_BUCKET = 32
@@ -46,10 +56,13 @@ def audio_length(mel_frames: int, cfg: VocoderConfig = VocoderConfig()
     return (mel_frames + cfg.mel_pad_frames) * cfg.total_upsample - 6
 
 
-def device_params(params, device):
-    """The vocoder tree on ``device``, memoized per (tree, device)."""
-    return cached_cast(params, "device", lambda p: tree_to_torch(p, device),
+def device_params(params, device, mesh=None):
+    """The vocoder tree on ``device`` (this rank's part of it on a mesh
+    with a tp axis), memoized per (tree, device, mesh shape and rank)."""
+    full = cached_cast(params, "device", lambda p: tree_to_torch(p, device),
                        device)
+    return shard_cast(params, "device", full, lambda m: vocoder_param_specs(
+        m, len(full["stages"])), mesh, device)
 
 
 def draw_normal(generator, shape, device) -> torch.Tensor:
@@ -75,28 +88,37 @@ def _padded_mel(mel_norm, lens, pad_total, cfg):
 @torch.inference_mode()
 def vocoder_batch_device(params, mel_dev, mel_lens,
                          cfg: VocoderConfig = VocoderConfig(), seed: int = 0,
-                         compute_dtype=None, device=None):
+                         compute_dtype=None, device=None, mesh=None):
     """Device (B, n_mel, T) normalized mel with per-row lengths -> list of
-    per-row float32 host audio arrays; noise from a torch.Generator."""
+    per-row float32 host audio arrays; noise from a torch.Generator.
+    ``mesh``: this rank vocodes its rows and returns every row (see the
+    module docstring)."""
     device = resolve_device(device)
-    params = device_params(params, device)
+    params = device_params(params, device, mesh)
     lens = np.asarray(mel_lens, np.int64)
+    b = len(lens)
     totals = lens + cfg.mel_pad_frames
     pad_total = round_up(int(totals.max()), MEL_BUCKET)
-    mel_v = _padded_mel(mel_dev.to(device), lens, pad_total, cfg)
-    noise = draw_normal(common.make_generator(seed, device),
-                        (len(lens), cfg.noise_ch, pad_total), device)
+    rows = dp_rows(mesh, b, "vocoder_batch_device")
+    mel_v = _padded_mel(mel_dev.to(device)[rows], lens[rows], pad_total, cfg)
+    noise = draw_rows(draw_normal, common.make_generator(seed, device),
+                      (b, cfg.noise_ch, pad_total), device, rows)
     audio = vmodel.vocoder_forward(
-        params, cfg, mel_v, noise, torch.as_tensor(totals, device=device),
-        compute_dtype).cpu().numpy()
+        params, cfg, mel_v, noise,
+        torch.as_tensor(totals[rows], device=device), compute_dtype,
+        axis_group(mesh, "tp"))
+    if rows != slice(0, b):
+        audio = axis_group(mesh, "dp").all_gather(audio)
+    audio = audio.cpu().numpy()
     return [audio[i, :audio_length(int(lens[i]), cfg)]
             for i in range(len(lens))]
 
 
 def vocoder_batch(params, mel_list, cfg: VocoderConfig = VocoderConfig(),
-                  seed: int = 0, compute_dtype=None, device=None):
+                  seed: int = 0, compute_dtype=None, device=None, mesh=None):
     """Host list of (n_mel, M_i) normalized mels -> list of host audio
-    arrays, vocoded together with per-row masked lengths."""
+    arrays, vocoded together with per-row masked lengths (``mesh`` as in
+    ``vocoder_batch_device``)."""
     device = resolve_device(device)
     mels = [np.asarray(m, np.float32) for m in mel_list]
     if not mels:
@@ -106,7 +128,7 @@ def vocoder_batch(params, mel_list, cfg: VocoderConfig = VocoderConfig(),
     for i, m in enumerate(mels):
         mel_in[i, :, :m.shape[1]] = m
     return vocoder_batch_device(params, torch.as_tensor(mel_in), lens, cfg,
-                                seed, compute_dtype, device)
+                                seed, compute_dtype, device, mesh)
 
 
 @torch.inference_mode()

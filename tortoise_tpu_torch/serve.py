@@ -18,6 +18,13 @@ Determinism: a batch is seeded by its FIRST request's seed and row b
 draws row b of the batch's streams, so a request's output depends on the
 batch it lands in. For reproducible output, synthesize alone.
 
+On a mesh (``mesh=``, every rank of a ``parallel.make_mesh`` group):
+rank 0 runs the server, its queue and the HTTP front end; before each
+batch it broadcasts the batch (tokens, voices, seed, sampler, planes) to
+the other ranks, which run ``serve_follower`` and join the batch's
+``synthesize_batch``; ``stop()`` releases them. Streams run on rank 0
+alone, without the mesh, under the device lock.
+
 The HTTP front end (``python -m tortoise_tpu_torch.serve``) is stdlib
 only: POST /synthesize returns audio/wav, POST /stream a chunked
 streaming WAV, GET /healthz the stats.
@@ -93,8 +100,36 @@ class _Request:
     future: Future = field(default_factory=Future)
 
 
+def _broadcast_job(job):
+    """Rank 0's batch (a dict of synthesize_batch arguments, or None to
+    stop) as every rank of the default group receives it."""
+    import torch.distributed as dist
+
+    box = [job]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def serve_follower(models: TortoiseModels, mesh, device=None) -> int:
+    """The loop of every rank but 0 of a mesh whose rank 0 runs a
+    SynthesisServer: join each batch the server broadcasts (its
+    ``synthesize_batch`` over the mesh) until the server stops. Returns
+    the number of batches joined. A failure here raises: rank 0's batch
+    then fails too, or waits on this rank until the group times out."""
+    device = resolve_device(device)
+    joined = 0
+    while True:
+        job = _broadcast_job(None)
+        if job is None:
+            return joined
+        synthesize_batch(models, materialize=False, device=device,
+                         mesh=mesh, **job)
+        joined += 1
+
+
 class SynthesisServer:
-    """Queue + worker around ``synthesize_batch`` on one device.
+    """Queue + worker around ``synthesize_batch`` on one device, or on
+    a mesh with followers (module docstring).
 
         server = SynthesisServer(models, compute_dtype=torch.bfloat16,
                                  int8_weights=True, device="cuda")
@@ -106,9 +141,14 @@ class SynthesisServer:
     def __init__(self, models: TortoiseModels, compute_dtype=None,
                  int8_weights: bool = False, max_batch: int = 8,
                  max_wait_ms: float = 50.0, default_voice=None,
-                 voice_dir: Optional[str] = None, device=None):
+                 voice_dir: Optional[str] = None, device=None, mesh=None):
         if not 1 <= max_batch <= B_BUCKETS[-1]:
             raise ValueError(f"max_batch must be in [1, {B_BUCKETS[-1]}]")
+        if mesh is not None and mesh.get_rank() != 0:
+            raise ValueError("a server on a mesh runs on rank 0; the other "
+                             "ranks run serve_follower")
+        self.mesh = mesh
+        self._released = False  # a mesh server's followers have returned
         self.models = models
         self.voice_dir = voice_dir
         self.compute_dtype = compute_dtype
@@ -137,6 +177,9 @@ class SynthesisServer:
     def start(self) -> "SynthesisServer":
         if self._worker is not None:
             raise RuntimeError("server already started")
+        if self._released:
+            raise RuntimeError("a server on a mesh starts once: its "
+                               "followers returned when it stopped")
         self._stop.clear()
         self._closed = False
         self._worker = threading.Thread(target=self._run, daemon=True,
@@ -161,6 +204,9 @@ class SynthesisServer:
             self._stop.set()
             worker.join()
             self._worker = None
+            if self.mesh is not None:  # no batch is in flight now
+                _broadcast_job(None)
+                self._released = True
             while True:  # fail what is left (drain=False)
                 try:
                     req = self._queue.get_nowait()
@@ -310,12 +356,7 @@ class SynthesisServer:
             raise ValueError("warmup needs a default_voice")
         with self._device_lock:
             # ids 1 and 0 are in every vocab, the tiny test configs' too
-            synthesize_batch(
-                self.models, tokens_list=[[1] * 7 + [0]],
-                voices=[self.default_voice], seed=0,
-                compute_dtype=self.compute_dtype,
-                int8_weights=self.int8_weights, materialize=False,
-                device=self.device)
+            self._synthesize([[1] * 7 + [0]], [self.default_voice], 0, None)
 
     # -- worker ------------------------------------------------------------
 
@@ -332,6 +373,17 @@ class SynthesisServer:
                         break
             return load_voice_latent(path, self.models.ar_cfg.d_model)
         return np.asarray(voice, np.float32)
+
+    def _synthesize(self, tokens_list, voices, seed, sampler):
+        """One batch through synthesize_batch; on a mesh, broadcast to the
+        followers first so every rank joins it."""
+        job = dict(tokens_list=tokens_list, voices=voices, seed=seed,
+                   sampler_params=sampler, compute_dtype=self.compute_dtype,
+                   int8_weights=self.int8_weights)
+        if self.mesh is not None:
+            _broadcast_job(job)
+        return synthesize_batch(self.models, materialize=False,
+                                device=self.device, mesh=self.mesh, **job)
 
     @staticmethod
     def _bucket(n: int) -> int:
@@ -405,12 +457,9 @@ class SynthesisServer:
         rows = batch + [batch[-1]] * (bucket - n)  # repeat-pad rows
         try:
             with self._device_lock:
-                results = synthesize_batch(
-                    self.models, tokens_list=[r.tokens for r in rows],
-                    voices=[r.voice for r in rows], seed=batch[0].seed,
-                    compute_dtype=self.compute_dtype,
-                    int8_weights=self.int8_weights, materialize=False,
-                    sampler_params=sampler, device=self.device)
+                results = self._synthesize(
+                    [r.tokens for r in rows], [r.voice for r in rows],
+                    batch[0].seed, sampler)
         except Exception as e:  # resolve the batch, keep the worker
             for r in batch:
                 r.future.set_exception(e)
