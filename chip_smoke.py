@@ -17,9 +17,14 @@ Phases (any failure exits nonzero before the result line):
    timed with its plain version, SDPA and bound); the
    serving shapes: A on ragged rows at B = 4 and 16, B at a stream
    window (8, 384) and on a batch's ragged CFG rows; D1 at a ragged
-   T = 1000 and on a server batch's 16 CFG rows; E per hop at L = 2208
-   and at a 32-frame chunk (timed), at a ragged L = 2186 and on two
-   batch rows of stacked kernels;
+   T = 1000 and on a server batch's 16 CFG rows; D2 in each of its modes
+   (causal at the latent pass's (8, 16, 535, 64); the bucket bias, a
+   materialized bias, Tq 256 x Tkv 1000 with the formula bias and causal
+   with it at (2, 16, 1000, 64); timed against plain, SDPA and the bound)
+   and again at head widths 16, 32 and 128; B and C at head width 16;
+   the f32 FMA body (D2 causal and D1, 1e-4, timed against SDPA in f32);
+   E per hop at L = 2208 and at a 32-frame chunk (timed), at a ragged L
+   = 2186 and on two batch rows of stacked kernels;
 4. end to end at full production width (random weights, bf16 + int8,
    stand-in tokens), eight requests, each with the launch counts set to 0
    before it and read after it: request 1 through the CLI at
@@ -201,6 +206,15 @@ C_SHAPE = (8, 16, 535)  # (b, heads, S): the AR latent pass at batch 8
 D1_CASES = ((2, 2176, 32, 32, (None, 1900)), (2, 1000, 32, 32, (937,)),
             (16, 1000, 32, 32, ("ragged",)), (2, 2176, 16, 64, (None,)))
 WIDE = ((2, 2176), (8, 535))  # (b, t) of B and C at 8 heads of 128
+# D2 at head width 64: (mode, b, heads, Tq, Tkv); the first is the result
+# line's (the AR latent pass's shape at batch 8, causal with a key mask)
+D2_CASES = (("causal", 8, 16, 535, 535), ("buckets", 2, 16, 1000, 1000),
+            ("materialized", 2, 16, 1000, 1000),
+            ("unequal", 2, 16, 256, 1000),
+            ("causal_formula", 2, 16, 1000, 1000))
+D2_WIDTHS = (16, 32, 128)  # every mode again at 4 heads of these widths
+# f32 inputs on flash_attention_bhtd.cu's FMA body: (route, b, heads, T, D)
+FMA_CASES = (("D2", 8, 16, 535, 64), ("D1", 2, 32, 2176, 32))
 # E: (L, batch rows) at each hop: 500 latents' 2208 bucket, a stream
 # chunk, the ragged 2186 frames, then two batch rows
 E_CASES = ((2208, 1), (32, 1), (2186, 1), (2208, 2), (32, 2))
@@ -217,6 +231,67 @@ def views(qkv, h, d):
     b, t, _ = qkv.shape
     x = qkv.view(b, t, h, 3, d)
     return tuple(x[:, :, :, p].transpose(1, 2) for p in range(3))
+
+
+def d2_inputs(torch, g, mode, b, h, tq, tkv, d=64):
+    """q (B, H, Tq, D), k and v (B, H, Tkv, D) in bf16 and
+    flash_attention's keywords for one D2 case: "causal" (the latent
+    pass's key mask: two padded text slots), "buckets" (bucket ids and a
+    table), "materialized" (an (H, Tq, Tkv) f32 bias), "unequal" (the
+    formula bias at Tq != Tkv), "causal_formula" (causal with the formula
+    bias); all but "causal" with the last row's keys cut 63 short."""
+    from tortoise_tpu_torch.ops.relpos import relative_position_buckets
+
+    dev = torch.device("cuda")
+    q = torch.randn((b, h, tq, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, h, tkv, d), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    table = torch.randn((32, h), generator=g, device=dev) * 0.3
+    if mode == "causal":
+        valid = torch.ones((b, tkv), dtype=torch.bool, device=dev)
+        valid[:, 1 + 30:1 + 32] = False
+    else:
+        lens = torch.tensor([tkv] * (b - 1) + [tkv - 63], device=dev)
+        valid = torch.arange(tkv, device=dev)[None, :] < lens[:, None]
+    kw = dict(kv_valid=valid, causal=mode.startswith("causal"))
+    if mode == "buckets":
+        kw.update(bias_buckets=torch.as_tensor(
+            relative_position_buckets(tq), device=dev), bias_table=table)
+    elif mode == "materialized":
+        kw["bias"] = torch.randn((h, tq, tkv), generator=g, device=dev)
+    elif mode in ("unequal", "causal_formula"):
+        kw.update(bias_table=table, bias_formula=True)
+    return q, k, v, kw
+
+
+def attention_add(torch, K, q, k, kw):
+    """(the bias, key mask and causal mask of one flash_attention call as
+    one additive (B, H, Tq, Tkv) f32 tensor for SDPA, the Toeplitz vector
+    or None, the materialized bias or None)."""
+    tq, tkv = q.shape[2], k.shape[2]
+    vec, full, _ = K._bias_args(q, k, kw.get("bias"), kw["causal"],
+                                kw.get("bias_buckets"), kw.get("bias_table"),
+                                8.0, kw.get("bias_formula", False), 64)
+    add = torch.zeros((), device=q.device)
+    if kw["kv_valid"] is not None:
+        add = K._additive_mask(kw["kv_valid"])[:, None, None, :]
+    if vec is not None:
+        add = add + K._toeplitz_full(vec, tq, tkv)[None]
+    if full is not None:
+        add = add + full[None]
+    if kw["causal"]:
+        add = add + K._causal_add(tq, tkv, q.device)
+    return add, vec, full
+
+
+def attention_pairs(b, h, tq, tkv, causal) -> float:
+    """(query, key) pairs a call scores: under the top-left diagonal when
+    causal (row i sees min(i + 1, Tkv) keys)."""
+    if not causal:
+        return float(b * h * tq * tkv)
+    n = min(tq, tkv)
+    return float(b * h * (n * (n + 1) // 2 + (tq - n) * tkv))
 
 
 def lvc_inputs(torch, g, b, L, hop):
@@ -748,57 +823,100 @@ def check_kernel_d1(torch, results):
 
 
 def check_kernel_d2(torch, results):
-    """Kernel D2, the generic body: causal with a key mask at the AR
-    latent pass's shape (8, 16, 535, 64), and the bucket-bias mode at
-    (2, 16, 1000, 64) with a ragged row."""
+    """Kernel D2, the generic body, on the wgmma + TMA body: each of
+    D2_CASES at head width 64 (causal with a key mask at the AR latent
+    pass's shape (8, 16, 535, 64); the bucket bias, a materialized bias,
+    Tq 256 x Tkv 1000 with the formula bias, and causal with the formula
+    bias at (2, 16, 1000, 64), each with a ragged row) held against its
+    plain version and timed (kernel, plain, SDPA, bound), one launch of
+    D2 a call with an f32 output; then every mode at 4 heads of
+    D2_WIDTHS, checked."""
     from tortoise_tpu_torch.ops.cuda import flash_attention as K
-    from tortoise_tpu_torch.ops.relpos import relative_position_buckets
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst, tol, main = 0.0, 2e-2, None
+    for mode, b, h, tq, tkv in D2_CASES:
+        q, k, v, kw = d2_inputs(torch, g, mode, b, h, tq, tkv)
+        label = f"D2 {mode} ({b}, {h}, {tq}, {tkv}, 64)"
+        before = K._generic_flash.launches
+        got = K.flash_attention(q, k, v, **kw)
+        if K._generic_flash.launches != before + 1 or \
+                got.dtype != torch.float32:
+            fail(f"{label} was not one f32 launch of D2")
+        want = K.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        worst = _check(torch, label, got, want, tol, worst)
+        ms = cuda_ms(torch, lambda: K.flash_attention(q, k, v, **kw))
+        plain_ms = cuda_ms(torch, lambda: K.flash_attention_plain(
+            q, k, v, **kw), iters=3)
+        add, vec, full = attention_add(torch, K, q, k, kw)
+        lib_ms = sdpa_ms(torch, q, k, v, add, label)
+        del add
+        pairs = attention_pairs(b, h, tq, tkv, kw["causal"])
+        d2_bound = bound(nbytes(q, k, v, kw["kv_valid"], vec, full, got),
+                         flops=4.0 * 64 * pairs, exps=pairs)
+        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA {lib_ms:.4f} ms, bound {d2_bound['bound_ms']:.4f} ms "
+              f"({d2_bound['bound_by']})")
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        **d2_bound)
+        del q, k, v, kw, got, want, vec, full
+    for d in D2_WIDTHS:
+        for mode, *_ in D2_CASES:
+            tq, tkv = (256, 1000) if mode == "unequal" else (300, 300)
+            q, k, v, kw = d2_inputs(torch, g, mode, 2, 4, tq, tkv, d)
+            got = K.flash_attention(q, k, v, **kw)
+            worst = _check(torch, f"D2 {mode} (2, 4, {tq}, {tkv}, {d})",
+                           got, K.flash_attention_plain(q, k, v, **kw), tol,
+                           worst)
+    results["D2"] = dict(max_abs_err=worst, **main)
+
+
+def check_fma_body(torch):
+    """flash_attention_bhtd.cu's FMA body (D1 and D2 on f32 inputs): D2
+    causal with the latent pass's key mask at (8, 16, 535, 64) and D1 on
+    f32 views of a packed qkv at (2, 32, 2176, 32) with the formula bias,
+    each held against its plain version at 1e-4 and timed (kernel, plain,
+    SDPA on the same f32 operands, the f32 FMA bound)."""
+    from tortoise_tpu_torch.ops.cuda import flash_attention as K
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(4)
-    worst, tol = 0.0, 2e-2
-
-    def qkv_of(b, h, t):
-        return tuple(torch.randn((b, h, t, 64), generator=g, device=dev)
-                     .to(torch.bfloat16) for _ in range(3))
-
-    q, k, v = qkv_of(8, 16, 535)
-    valid = torch.ones((8, 535), dtype=torch.bool, device=dev)
-    valid[:, 1 + 30:1 + 32] = False
-    got = K.flash_attention(q, k, v, None, valid, causal=True)
-    want = K.flash_attention_plain(q, k, v, None, valid, causal=True)
-    torch.cuda.synchronize()
-    worst = _check(torch, "D2 causal (8, 16, 535, 64)", got, want, tol,
-                   worst)
-    ms = cuda_ms(torch, lambda: K.flash_attention(q, k, v, None, valid,
-                                                  causal=True))
-    plain_ms = cuda_ms(torch, lambda: K.flash_attention_plain(
-        q, k, v, None, valid, causal=True), iters=3)
-    add = K._causal_add(535, 535, dev)[None, None] + \
-        K._additive_mask(valid)[:, None, None, :]
-    lib_ms = sdpa_ms(torch, q, k, v, add, "D2 causal (8, 16, 535, 64)")
-    pairs = 8 * 16 * 535 * 536 / 2
-    d2_bound = bound(nbytes(q, k, v, valid, got), flops=4.0 * 64 * pairs,
-                     exps=pairs)
-
-    q, k, v = qkv_of(2, 16, 1000)
-    valid = torch.arange(1000, device=dev)[None, :] < torch.tensor(
-        [[1000], [937]], device=dev)
-    kw = dict(bias_buckets=torch.as_tensor(relative_position_buckets(1000),
-                                           device=dev),
-              bias_table=torch.randn((32, 16), generator=g, device=dev) * .3)
-    got = K.flash_attention(q, k, v, None, valid, **kw)
-    want = K.flash_attention_plain(q, k, v, None, valid, **kw)
-    torch.cuda.synchronize()
-    worst = _check(torch, "D2 bucket bias (2, 16, 1000, 64)", got, want,
-                   tol, worst)
-    ms_b = cuda_ms(torch, lambda: K.flash_attention(q, k, v, None, valid,
-                                                    **kw))
-    print(f"  D2 causal (8, 16, 535, 64): kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms; bucket bias (2, 16, "
-          f"1000, 64): kernel {ms_b:.3f} ms")
-    results["D2"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, **d2_bound)
+    g = torch.Generator(device=dev).manual_seed(8)
+    for route, b, h, t, d in FMA_CASES:
+        qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev)
+        q, k, v = views(qkv, h, d)
+        if route == "D2":
+            valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+            valid[:, 1 + 30:1 + 32] = False
+            kw = dict(kv_valid=valid, causal=True)
+        else:
+            kw = dict(kv_valid=None, causal=False,
+                      bias_table=torch.randn((32, h), generator=g,
+                                             device=dev) * 0.3,
+                      bias_formula=True)
+        label = f"{route} f32 FMA body ({b}, {h}, {t}, {d})"
+        fn = K._generic_flash if route == "D2" else K._grouped_flash
+        before = fn.launches
+        got = K.flash_attention(q, k, v, **kw)
+        if fn.launches != before + 1 or got.dtype != torch.float32:
+            fail(f"{label} was not one f32 launch of {route}")
+        want = K.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _check(torch, label, got, want, 1e-4, 0.0)
+        ms = cuda_ms(torch, lambda: K.flash_attention(q, k, v, **kw),
+                     iters=3)
+        plain_ms = cuda_ms(torch, lambda: K.flash_attention_plain(
+            q, k, v, **kw), iters=3)
+        add, vec, _ = attention_add(torch, K, q, k, kw)
+        lib_ms = sdpa_ms(torch, q, k, v, add, label)
+        pairs = attention_pairs(b, h, t, t, kw["causal"])
+        fma = bound(nbytes(qkv, kw["kv_valid"], vec, got),
+                    flops=4.0 * d * pairs, flop_rate=F32_FLOPS, exps=pairs)
+        print(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA (f32) {lib_ms:.3f} ms, f32 bound {fma['bound_ms']:.4f} "
+              f"ms ({fma['bound_by']})")
+        del qkv, q, k, v, got, want, add
 
 
 def check_wide_heads(torch):
@@ -837,8 +955,8 @@ def check_wide_heads(torch):
     ms_c = cuda_ms(torch, lambda: K.flash_attention_causal_qkv(qkv, 8,
                                                                 valid))
     print(f"  head width 128: B route {ms_b:.3f} ms, C route {ms_c:.3f} ms")
-    # the tiny configs' 4 heads of 16: flash_attention_bhtd.cu's mma.sync
-    # body with a bf16 output (B through D1, C causal through D2)
+    # the tiny configs' 4 heads of 16: the wgmma + TMA body on strided
+    # views (one 16-column box a tile, the 32-byte swizzle), bf16 output
     qkv = torch.randn((2, 230, 3 * 64), generator=g,
                       device=dev).to(torch.bfloat16)
     valid = torch.arange(230, device=dev)[None, :] < torch.tensor(
@@ -2091,6 +2209,7 @@ def main(argv=None) -> int:
     check_kernel_d1(torch, results)
     check_kernel_d2(torch, results)
     check_wide_heads(torch)
+    check_fma_body(torch)
     check_kernel_e(torch, results)
     if args.profile:
         print("[profile] torch.profiler", flush=True)
@@ -2113,7 +2232,7 @@ def main(argv=None) -> int:
                "tortoise_tpu_torch/csrc/flash_attention.cu",
                pallas + "flash_attention.py:154"),
         "D2": ("flash_attention (generic body)", "flash_attention_generic",
-               "tortoise_tpu_torch/csrc/flash_attention_bhtd.cu",
+               "tortoise_tpu_torch/csrc/flash_attention.cu",
                pallas + "flash_attention.py:549"),
         "E": ("lvc_gated_residual", "lvc_gated_residual",
               "tortoise_tpu_torch/csrc/lvc.cu", pallas + "lvc.py:50"),

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Device and host times of the port's kernels B, C, D1 and E on one
+"""Device and host times of the port's kernels B, C, D1, D2 and E on one
 NVIDIA card, for the tortoise_tpu_torch of the checkout at --root, at
 the phase-3 shapes and inputs of this checkout's chip_smoke.py (its
-B_CASES, C_SHAPE, D1_CASES, WIDE, E_CASES and input builders); with
---request3 N, also N runs of chip_smoke's request 3 (synthesize() on the
-diffusion fallback and the fused LVC: kernels A, D1 and E). Two
+B_CASES, C_SHAPE, D1_CASES, WIDE, D2_CASES, E_CASES and input
+builders); with --request3 N, also N runs of chip_smoke's request 3
+(synthesize() on the diffusion fallback and the fused LVC: kernels A, D1
+and E). Two
 checkouts compare inside one call, in turns:
 
     python3 scripts/torch_kernel_times.py --root _archive/parent --label parent
@@ -183,11 +184,11 @@ def main() -> int:
                           ("contiguous", [x.contiguous() for x in (q, k, v)])):
             emit(f"D1 {form}", [b, h, t, d], lambda: FA.flash_attention(
                 *ops, bias_table=tab, bias_formula=True))
-    b, t, _ = smoke.B_CASES[0]
-    x = smoke.bf16_qkv(torch, g, b, t, 16, 64)
-    vec = FA.relpos_bias_vector(table(16), t)
-    emit("B", [b, 16, t, 64],
-         lambda: FA.flash_attention_packed(x, 16, bias_vec=vec))
+    b, t, _, h = smoke.B_CASES[0]
+    x = smoke.bf16_qkv(torch, g, b, t, h, 64)
+    vec = FA.relpos_bias_vector(table(h), t)
+    emit("B", [b, h, t, 64],
+         lambda: FA.flash_attention_packed(x, h, bias_vec=vec))
     (b, t), (bc, s) = smoke.WIDE
     xw = smoke.bf16_qkv(torch, g, b, t, 8, 128)
     vec_w = FA.relpos_bias_vector(table(8), t)
@@ -199,6 +200,11 @@ def main() -> int:
     valid[:, 31:33] = False
     emit("C", [b, h, s, 64],
          lambda: FA.flash_attention_causal_qkv(xc, h, valid))
+    for mode, b, h, tq, tkv in smoke.D2_CASES:
+        q, k, v, kw = smoke.d2_inputs(torch, g, mode, b, h, tq, tkv)
+        emit(f"D2 {mode}", [b, h, tq, tkv, 64],
+             lambda: FA.flash_attention(q, k, v, **kw))
+        del q, k, v, kw
     for L, b in smoke.E_CASES:
         for hop in smoke.E_HOPS:
             e_args = smoke.lvc_inputs(torch, g, b, L, hop)

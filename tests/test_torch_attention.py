@@ -123,3 +123,81 @@ def test_toeplitz_vector_is_the_formula_bias_of_any_shape():
     ids = np.asarray(bucket_of_delta(jnp.asarray(delta)))
     want = 8.0 * table[ids].transpose(2, 0, 1)
     np.testing.assert_array_equal(vec[:, delta + tq - 1], want)
+
+
+UNEQUAL = [(200, 256), (256, 200), (100, 300)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("mode", ["none", "materialized"])
+@pytest.mark.parametrize("tq,tkv", UNEQUAL)
+def test_flash_attention_at_unequal_lengths_matches_xla(tq, tkv, mode,
+                                                        masked):
+    """Kernel D's generic mode with Tq != Tkv (f32, 1e-4) against the JAX
+    package's readable ``xla_attention``. Not against the Pallas kernel:
+    its wrapper builds the all-valid key mask at the query length
+    (``jnp.ones((b, t))`` with t = Tq) and pads that to the key blocks,
+    so with Tq != Tkv it masks real keys or keeps padded ones. The port's
+    key mask is of length Tkv."""
+    b, h, d = 2, 2, 32
+    rng = np.random.default_rng(tq + 7 * tkv)
+    q = rng.normal(0, 1, (b, h, tq, d)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (b, h, tkv, d)).astype(np.float32)
+            for _ in range(2))
+    bias = None
+    if mode == "materialized":
+        bias = rng.normal(0, 1, (h, tq, tkv)).astype(np.float32)
+    valid = None
+    if masked:
+        valid = np.ones((b, tkv), bool)
+        valid[1, tkv - 23:] = False
+        valid[0, 3:6] = False
+    want = JF.xla_attention(
+        *(jnp.asarray(a) for a in (q, k, v)),
+        bias=None if bias is None else jnp.asarray(bias),
+        kv_valid=None if valid is None else jnp.asarray(valid))
+    got = TF.flash_attention(
+        *(torch.tensor(a) for a in (q, k, v)),
+        bias=None if bias is None else torch.tensor(bias),
+        kv_valid=None if valid is None else torch.tensor(valid))
+    assert got.dtype == torch.float32
+    assert_close(got.numpy(), np.asarray(want), 1e-4)
+
+
+def _numpy_attention(q, k, v, add):
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(q.shape[-1]) + add
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+
+
+@pytest.mark.parametrize("formula", [False, True])
+@pytest.mark.parametrize("tq,tkv", UNEQUAL)
+def test_causal_at_unequal_lengths_is_top_left(tq, tkv, formula):
+    """Causal with Tq != Tkv keeps the JAX kernel's top-left rule on
+    absolute indices (row i sees key j when j <= i; rows past Tkv see
+    every key), with a key mask and optionally the formula bias (then D2
+    in the JAX package's routing), against numpy (f32, 1e-4).
+    ``xla_attention`` builds its causal mask at Tq x Tq, so it cannot
+    serve here."""
+    from tortoise_tpu.ops.relpos import bucket_of_delta
+
+    b, h, d = 2, 2, 16
+    rng = np.random.default_rng(tq * tkv)
+    q = rng.normal(0, 1, (b, h, tq, d)).astype(np.float32)
+    k, v = (rng.normal(0, 1, (b, h, tkv, d)).astype(np.float32)
+            for _ in range(2))
+    table = rng.normal(0, 0.3, (32, h)).astype(np.float32)
+    valid = np.ones((b, tkv), bool)
+    valid[1, 40:45] = False
+    i, j = np.arange(tq)[:, None], np.arange(tkv)[None, :]
+    add = np.where(j <= i, 0.0, -1e30)[None, None] + \
+        np.where(valid, 0.0, -1e30)[:, None, None, :]
+    kw = {}
+    if formula:
+        ids = np.asarray(bucket_of_delta(jnp.asarray(j - i)))
+        add = add + 8.0 * table[ids].transpose(2, 0, 1)[None]
+        kw = dict(bias_table=torch.tensor(table), bias_formula=True)
+    got = TF.flash_attention(*(torch.tensor(a) for a in (q, k, v)),
+                             kv_valid=torch.tensor(valid), causal=True, **kw)
+    assert got.dtype == torch.float32
+    assert_close(got.numpy(), _numpy_attention(q, k, v, add), 1e-4)

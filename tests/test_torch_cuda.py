@@ -314,37 +314,55 @@ def test_tma_body_copies_a_view_that_breaks_the_16_byte_rule(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("mode", ["none", "materialized", "buckets",
-                                  "causal_masked", "formula_f32"])
+                                  "causal_masked", "formula_f32",
+                                  "unequal_formula_masked", "causal_formula",
+                                  "materialized_unequal"])
 def test_generic_kernel_d2_matches_plain_on_card(cuda_device, dtype, tol,
-                                                 mode):
+                                                 mode, d):
+    """Kernel D2 in each of its modes at every head width: bf16 on the
+    wgmma + TMA body, f32 on the FMA body, each one launch of D2 with an
+    f32 output. Tq != Tkv: 150 query rows over 203 keys with the formula
+    bias and a ragged key mask (203 % 4 != 0, so a materialized bias is
+    read from a padded copy); causal with the formula bias is D2 too
+    (the JAX package's D1 is non-causal). "formula_f32" is D1's rule
+    (bf16 output for bf16 inputs)."""
     from tortoise_tpu_torch.ops.relpos import relative_position_buckets
 
-    b, h, t, d = 2, 2, 150, 32
-    g = torch.Generator(device=cuda_device).manual_seed(5)
-    q, k, v = (torch.randn((b, h, t, d), generator=g, device=cuda_device)
-               .to(dtype) for _ in range(3))
+    b, h, t = 2, 2, 150
+    tkv = 203 if "unequal" in mode else t
+    g = torch.Generator(device=cuda_device).manual_seed(5 + d)
+    q = torch.randn((b, h, t, d), generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn((b, h, tkv, d), generator=g, device=cuda_device)
+            .to(dtype) for _ in range(2))
     table = torch.randn(32, h, device=cuda_device) * 0.3
-    valid = torch.ones((b, t), dtype=torch.bool, device=cuda_device)
-    valid[1, 131:] = False
+    valid = torch.ones((b, tkv), dtype=torch.bool, device=cuda_device)
+    valid[1, tkv - 19:] = False
     valid[0, 5:9] = False
     kw = {}
-    if mode == "materialized":
-        kw["bias"] = torch.randn((h, t, t), generator=g, device=cuda_device)
+    if mode.startswith("materialized"):
+        kw["bias"] = torch.randn((h, t, tkv), generator=g,
+                                 device=cuda_device)
     elif mode == "buckets":
         kw.update(bias_buckets=torch.tensor(relative_position_buckets(t),
                                             device=cuda_device),
                   bias_table=table)
-    elif mode == "formula_f32":
+    elif "formula" in mode:
         # D1's rule with f32 inputs (the f32 parity plane's denoiser)
         kw.update(bias_table=table, bias_formula=True)
-    causal = mode == "causal_masked"
+    causal = mode.startswith("causal")
+    fn = TF._grouped_flash if mode == "formula_f32" else TF._generic_flash
+    before = fn.launches
     got = TF.flash_attention(q, k, v, kv_valid=valid, causal=causal, **kw)
+    assert fn.launches == before + 1
     want = TF.flash_attention_plain(q, k, v, kv_valid=valid, causal=causal,
                                     **kw)
     assert got.dtype == want.dtype
+    if fn is TF._generic_flash:
+        assert got.dtype == torch.float32
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), tol)
 
 
@@ -385,23 +403,26 @@ def test_packed_and_causal_kernels_take_head_width_128(cuda_device):
 @pytest.mark.parametrize("t", [64, 230])
 def test_packed_and_causal_kernels_take_head_width_16(cuda_device, t):
     """Kernels B and C at the tiny configs' head width (4 heads of 16):
-    the wrappers run flash_attention_bhtd.cu's mma.sync body with a bf16
-    output, B as D1 (the Toeplitz bias) and C as D2 (causal)."""
+    the wrappers run the wgmma + TMA body on strided views of the qkv
+    (one 16-column box a tile, the 32-byte swizzle) with a bf16 output
+    and count as B and C."""
     h = 4
     qkv = torch.tensor(_qkv(2, t, h, 16, 17)).bfloat16().to(cuda_device)
     valid = torch.arange(t, device=cuda_device)[None, :] < torch.tensor(
         [[t], [t - 29]], device=cuda_device)
     bias_vec = TF.relpos_bias_vector(
         torch.randn(32, h, device=cuda_device) * 0.3, t)
-    before = (TF._grouped_flash.launches, TF._generic_flash.launches)
+    counted = (TF.flash_attention_packed, TF.flash_attention_causal_qkv,
+               TF._grouped_flash, TF._generic_flash)
+    before = [fn.launches for fn in counted]
     got = TF.flash_attention_packed(qkv, h, valid, bias_vec=bias_vec)
     want = TF.flash_attention_packed_plain(qkv, h, valid, bias_vec)
     assert got.dtype == torch.bfloat16
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
     got = TF.flash_attention_causal_qkv(qkv, h, valid)
     want = TF.flash_attention_causal_qkv_plain(qkv, h, valid)
-    assert (TF._grouped_flash.launches, TF._generic_flash.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert [fn.launches for fn in counted] == [before[0] + 1, before[1] + 1,
+                                               before[2], before[3]]
     assert got.dtype == torch.bfloat16
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
 

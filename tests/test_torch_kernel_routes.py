@@ -14,13 +14,36 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("dtype,d,route,want", [
     (BF16, 32, "D1", "tma"), (BF16, 64, "D1", "tma"), (BF16, 128, "D1", "tma"),
-    (BF16, 16, "D1", "mma"), (BF16, 32, "B", "tma"), (BF16, 64, "B", "qkv"),
-    (BF16, 128, "B", "tma"), (BF16, 16, "B", "mma"), (BF16, 64, "C", "qkv"),
-    (BF16, 128, "C", "tma"), (BF16, 16, "C", "mma"), (BF16, 32, "D2", "mma"),
-    (BF16, 64, "D2", "mma"), (F32, 32, "D1", "fma"), (F32, 64, "D2", "fma"),
+    (BF16, 16, "D1", "tma"), (BF16, 32, "B", "tma"), (BF16, 64, "B", "qkv"),
+    (BF16, 128, "B", "tma"), (BF16, 16, "B", "tma"), (BF16, 64, "C", "qkv"),
+    (BF16, 128, "C", "tma"), (BF16, 16, "C", "tma"), (BF16, 32, "D2", "tma"),
+    (BF16, 64, "D2", "tma"), (BF16, 16, "D2", "tma"), (BF16, 128, "D2", "tma"),
+    (F32, 32, "D1", "fma"), (F32, 64, "D2", "fma"), (F32, 16, "D2", "fma"),
 ])
 def test_attention_body_picks_the_body(dtype, d, route, want):
     assert TF.attention_body(dtype, d, route) == want
+
+
+def test_attention_body_has_one_bf16_design():
+    """Every bf16 call runs on csrc/flash_attention.cu (the generic body,
+    or the fused-qkv body for B and C at width 64), every f32 call of D1
+    and D2 on the FMA body: no other body is named for any (dtype, head
+    width, route) the wrappers accept."""
+    taken = {}
+    for dtype in (BF16, F32, torch.float16):
+        for d in (8, 16, 32, 48, 64, 128, 256):
+            for route in ("B", "C", "D1", "D2"):
+                try:
+                    taken[dtype, d, route] = TF.attention_body(dtype, d,
+                                                               route)
+                except ValueError:
+                    pass
+    assert set(taken.values()) == {"tma", "qkv", "fma"}
+    assert {k for k, v in taken.items() if v == "fma"} == {
+        (F32, d, r) for d in TF.HEAD_WIDTHS for r in ("D1", "D2")}
+    assert {k for k, v in taken.items() if v == "qkv"} == {
+        (BF16, 64, "B"), (BF16, 64, "C")}
+    assert len(taken) == 8 + 4 * 4
 
 
 @pytest.mark.parametrize("dtype,d,route", [
@@ -79,6 +102,122 @@ def test_tma_layout_puts_unit_dims_last():
     assert lay["perm"] == 1 | 2 << 2 | 3 << 4
 
 
+def test_tma_layout_of_width_16_packed_views():
+    """The tiny configs' 4 heads of 16: 32-byte rows (the 32-byte swizzle
+    on the card), one 16-column box of 64 rows of t."""
+    b, t, h, d = 2, 100, 4, 16
+    _, k, _ = TF._split_packed(_qkv(b, t, h, d), h)
+    lay = TF.tma_layout(k)
+    assert lay["dims"] == (d, h, t, b)
+    assert lay["strides"] == (3 * d * 2, 3 * h * d * 2, t * 3 * h * d * 2)
+    assert lay["box"] == (16, 1, 64, 1)
+    assert lay["perm"] == 2 | 1 << 2 | 3 << 4
+
+
+def _bhtd(b, h, t, d, dtype=BF16):
+    return torch.zeros((b, t, h, d), dtype=dtype).transpose(1, 2)
+
+
+def test_tma_args_map_q_over_tq_and_k_v_over_tkv():
+    """D2 with Tq != Tkv: q's map runs over its 256 rows, k's and v's
+    over their 1000, each with its own strides; the mask is (B, Tkv)."""
+    b, h, tq, tkv, d = 2, 3, 256, 1000, 64
+    q, k, v = _bhtd(b, h, tq, d), _bhtd(b, h, tkv, d), _bhtd(b, h, tkv, d)
+    out = _bhtd(b, h, tq, d, torch.float32)
+    mask = torch.zeros((1, tkv))
+    ops, geom, vec, full, ld, m = TF._tma_args(
+        q, k, v, out, torch.zeros((h, tq + tkv - 1)), None, mask, True)
+    assert [x.data_ptr() for x in ops] == [x.data_ptr() for x in (q, k, v)]
+    row = d * 2 * h
+    assert geom[:8] == [d, h, tq, b, d * 2, row, row * tq, 2 | 1 << 2 | 3 << 4]
+    for x in (1, 2):
+        assert geom[8 * x:8 * x + 8] == [d, h, tkv, b, d * 2, row,
+                                         row * tkv, 2 | 1 << 2 | 3 << 4]
+    assert tuple(vec.shape) == (h, tq + tkv - 1) and full is None
+    assert ld == 0 and tuple(m.shape) == (b, tkv)
+    assert TF.tma_layout(q)["box"] == TF.tma_layout(k)["box"] == (64, 1, 64, 1)
+
+
+@pytest.mark.parametrize("tkv", [1, 997, 998, 999, 1000])
+def test_bias_operand_pads_rows_to_a_multiple_of_4(tkv):
+    """A materialized (H, Tq, Tkv) bias is read as (H, Tq, ld) rows of a
+    multiple of 4 floats (16-byte rows for the body's 8-byte pair loads);
+    Tkv % 4 != 0 gets a zero-padded copy, the rest is kept as it is."""
+    h, tq = 3, 5
+    bias = torch.randn((h, tq, tkv))
+    got, ld = TF._bias_operand(bias, h, tq, tkv, torch.device("cpu"))
+    assert ld % 4 == 0 and tkv <= ld < tkv + 4
+    assert tuple(got.shape) == (h, tq, ld) and got.is_contiguous()
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got[..., :tkv], bias)
+    assert not got[..., tkv:].any()
+    if ld == tkv:
+        assert got.data_ptr() == bias.data_ptr()
+    with pytest.raises(ValueError):
+        TF._bias_operand(bias, h, tq + 1, tkv, torch.device("cpu"))
+
+
+def test_tma_smem_bytes_is_the_kernels_layout():
+    """csrc/flash_attention.cu's smem_bytes: D1 at (2176, width 32) with
+    its bias window, C at (535, 64) with the mask alone, and a
+    materialized bias (no window) at width 128."""
+    assert TF.tma_smem_bytes(32, 2176, True) == \
+        1024 + 8 * 64 * 32 * 2 + 128 + 4 * (2176 + 2 * (2176 + 130))
+    assert TF.tma_smem_bytes(64, 535, False) == \
+        1024 + 8 * 64 * 64 * 2 + 128 + 4 * 576
+    assert TF.tma_smem_bytes(128, 1000, False) == \
+        1024 + 8 * 64 * 128 * 2 + 128 + 4 * 1024
+    for d in TF.TMA_WIDTHS:  # D1 at the denoiser's 2176 keeps its window
+        assert TF.tma_smem_bytes(d, 2176, True) <= TF.TMA_SMEM_LIMIT
+
+
+@pytest.mark.parametrize("window,fits,over", [(True, 8256, 8257),
+                                              (False, 25024, 25025)])
+def test_tma_args_name_the_shared_memory_limit(window, fits, over):
+    """At head width 128 the bias window fits 8256 keys (the mask alone
+    25024); one more raises a ValueError naming the card's limit."""
+    h, tq, d = 1, 64, 128
+    q = _bhtd(1, h, tq, d)
+    out = _bhtd(1, h, tq, d, torch.float32)
+    for tkv, ok in ((fits, True), (over, False)):
+        assert (TF.tma_smem_bytes(d, tkv, window) <= TF.TMA_SMEM_LIMIT) == ok
+        k = _bhtd(1, h, tkv, d)
+        vec = torch.zeros((h, tq + tkv - 1)) if window else None
+        if ok:
+            TF._tma_args(q, k, k, out, vec, None, None, True)
+        else:
+            with pytest.raises(ValueError, match="232448"):
+                TF._tma_args(q, k, k, out, vec, None, None, True)
+
+
+@pytest.mark.parametrize("case", ["bf16 output, materialized bias",
+                                  "bf16 output, causal with a bias",
+                                  "two biases", "f16 output", "f32 inputs",
+                                  "k and v differ", "Toeplitz length"])
+def test_tma_args_refuse_what_the_body_does_not_take(case):
+    h, tq, tkv, d = 2, 40, 70, 32
+    q, k, v = _bhtd(1, h, tq, d), _bhtd(1, h, tkv, d), _bhtd(1, h, tkv, d)
+    out = _bhtd(1, h, tq, d, torch.float32)
+    vec, full, causal = None, None, False
+    if case == "bf16 output, materialized bias":
+        out, full = _bhtd(1, h, tq, d), torch.zeros((h, tq, tkv))
+    elif case == "bf16 output, causal with a bias":
+        out, vec, causal = _bhtd(1, h, tq, d), torch.zeros(
+            (h, tq + tkv - 1)), True
+    elif case == "two biases":
+        vec, full = torch.zeros((h, tq + tkv - 1)), torch.zeros((h, tq, tkv))
+    elif case == "f16 output":
+        out = _bhtd(1, h, tq, d, torch.float16)
+    elif case == "f32 inputs":
+        q = _bhtd(1, h, tq, d, torch.float32)
+    elif case == "k and v differ":
+        v = _bhtd(1, h, tkv + 1, d)
+    else:
+        vec = torch.zeros((h, 2 * tq - 1))
+    with pytest.raises(ValueError):
+        TF._tma_args(q, k, v, out, vec, full, None, causal)
+
+
 def _refused():
     base = torch.zeros((2, 2, 30, 33), dtype=BF16)
     wide = torch.zeros((2, 2, 30, 64), dtype=BF16)
@@ -89,7 +228,7 @@ def _refused():
         "d not contiguous": wide.view(2, 2, 30, 32, 2)[..., 0],
         "overlapping dims": torch.zeros((2, 1, 30, 32), dtype=BF16)
         .expand(2, 3, 30, 32),
-        "head width 16": torch.zeros((2, 2, 30, 16), dtype=BF16),
+        "head width 48": torch.zeros((2, 2, 30, 48), dtype=BF16),
         "f32": torch.zeros((2, 2, 30, 32)),
     }
 

@@ -33,8 +33,9 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "tt_flash_packed": (_P, _I, _I, _I, _I, _P, _P, _F, _P, _P),
     "tt_flash_causal_qkv": (_P, _I, _I, _I, _I, _P, _F, _P, _P),
-    "tt_flash_tma": (_P,) * 6 + (_I,) * 4 + (_P, _P, _F, _I, _P),
-    "tt_flash_bhtd": (_P,) * 5 + (_I,) * 7 + (_P,) * 3 + (_F, _I, _P),
+    "tt_flash_tma": (_P,) * 6 + (_I,) * 5 + (_P, _P, _LL, _P, _F, _I, _I,
+                                            _P),
+    "tt_flash_bhtd": (_P,) * 5 + (_I,) * 5 + (_P,) * 3 + (_F, _I, _P),
     "tt_lvc_gated_residual": (_P,) * 5 + (_I,) * 9 + (_LL, _LL, _P),
     "tt_decode_trunk": ((_I,) * 7 + (_F,) + (_P,) * 22 + (_I,) + (_P,) * 10
                         + (_F, _I, _F, _F) + (_P,) * 4),

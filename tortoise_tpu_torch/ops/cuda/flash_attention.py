@@ -21,19 +21,23 @@ in q's dtype), and D2, the generic body (no bias, a materialized
 causal or ragged; optional causal flag; output f32).
 
 Two CUDA sources carry them (``attention_body`` picks one per call):
-- ``csrc/flash_attention.cu``, on wgmma + TMA: its generic body takes D1's
-  bf16 work at head widths 32, 64 and 128 and B and C at 32 and 128,
-  reading each of q, k, v through a tensor map of its own strided view
-  (``tma_layout``), so views of a fused qkv need no copy, and writing the
-  output through (b, h, t) strides into (B, T, H, D) memory; B and C at
-  width 64 run its fused-qkv body (one map over the whole qkv).
-- ``csrc/flash_attention_bhtd.cu``: D2's modes, f32 inputs (an FMA body)
-  and head width 16 (an ``mma.sync`` body), over (b, h, t) strides.
+- ``csrc/flash_attention.cu``, on wgmma + TMA, takes every bf16 call. Its
+  generic body runs D1 and D2 at head widths 16, 32, 64 and 128 and B and
+  C at 16, 32 and 128, reading each of q, k, v through a tensor map of its
+  own strided view (``tma_layout``; q's map runs over Tq rows, k's and
+  v's over Tkv), so views of a fused qkv need no copy, and writing the
+  output (bf16 for B, C and D1, f32 for D2) through (b, h, t) strides into
+  (B, T, H, D) memory. A materialized bias is read as (H, Tq, ld) with
+  ld a multiple of 4 (``_bias_operand`` pads it). B and C at width 64 run
+  its fused-qkv body (one map over the whole qkv).
+- ``csrc/flash_attention_bhtd.cu``: D1 and D2 on f32 inputs (an FMA body),
+  over (b, h, t) strides.
 
 The kernels walk the keys in shared-memory tiles with an online softmax,
-so the (T, T) scores never reach device memory; they are bound by the
-~4*T*T*D multiply-adds per (batch, head) on the tensor cores and, at
-head width 32, by the T*T exps.
+so the (Tq, Tkv) scores never reach device memory; they are bound by
+the ~4*Tq*Tkv*D multiply-adds per (batch, head) on the tensor cores and,
+at head widths 16 and 32, by the Tq*Tkv exps (by its bytes when a
+materialized bias is read).
 
 Each wrapper dispatches on the tensor's device: a CPU tensor takes the
 plain PyTorch version below, a CUDA tensor launches the kernel (and
@@ -56,9 +60,11 @@ from tortoise_tpu_torch.ops.cuda import build
 from tortoise_tpu_torch.ops.relpos import bucket_of_delta
 
 NEG_INF = -1e30
-HEAD_WIDTHS = (16, 32, 64, 128)  # flash_attention_bhtd.cu's templates
-TMA_WIDTHS = (32, 64, 128)  # flash_attention.cu's (the wgmma + TMA body)
+HEAD_WIDTHS = (16, 32, 64, 128)  # the head widths every body takes
+TMA_WIDTHS = HEAD_WIDTHS  # flash_attention.cu's (the wgmma + TMA body)
 TMA_ROWS = 64  # rows of t in one tensor-map box (a K/V tile)
+TMA_BQ = 128  # query rows of one block of the TMA body
+TMA_SMEM_LIMIT = 232448  # shared memory a block may have on an H100
 
 
 def _additive_mask(kv_valid: Optional[torch.Tensor]):
@@ -205,8 +211,8 @@ def flash_attention_packed(qkv: torch.Tensor, n_head: int,
     """Kernel B. qkv (B, T, 3*H*D) per-head interleaved; kv_valid (B, T)
     bool or None; the bias from a (NB, H) bucket table or a prebuilt
     (H, 2T-1) ``bias_vec``. Returns (B, T, H*D) in qkv's dtype. On a card
-    head width 64 runs the fused-qkv body, 32 and 128 the generic wgmma +
-    TMA body on strided views of qkv, 16 kernel D1."""
+    head width 64 runs the fused-qkv body, 16, 32 and 128 the generic
+    wgmma + TMA body on strided views of qkv."""
     t = qkv.shape[1]
     if bias_vec is None and bias_table is not None:
         bias_vec = relpos_bias_vector(bias_table, t, bias_scale,
@@ -232,12 +238,8 @@ def flash_attention_packed(qkv: torch.Tensor, n_head: int,
         return out
     q, k, v = _split_packed(qkv, n_head)
     out_bhtd = out.view(b, t, n_head, d).transpose(1, 2)
-    if body == "mma":
-        _grouped_flash(q, k, v, out_bhtd, bias_vec, None, mask, False,
-                       float(d) ** -0.5)
-        return out
-    _launch_tma(q, k, v, out_bhtd, bias_vec, mask, False, float(d) ** -0.5,
-                "tt_flash_tma (B)")
+    _launch_tma(q, k, v, out_bhtd, bias_vec, None, mask, False,
+                float(d) ** -0.5, "tt_flash_tma (B)")
     flash_attention_packed.launches += 1
     return out
 
@@ -250,8 +252,8 @@ def flash_attention_causal_qkv(qkv: torch.Tensor, n_head: int,
                                ) -> torch.Tensor:
     """Kernel C. qkv (B, S, 3*H*D) part-major; kv_valid (B, S) bool or
     None. Returns (B, S, H*D) in qkv's dtype. On a card head width 64
-    runs the fused-qkv body, 32 and 128 the generic wgmma + TMA body
-    (causal) on strided views of qkv, 16 kernel D2."""
+    runs the fused-qkv body, 16, 32 and 128 the generic wgmma + TMA body
+    (causal) on strided views of qkv."""
     if not qkv.is_cuda:
         return flash_attention_causal_qkv_plain(qkv, n_head, kv_valid)
     qkv, d = _check_cuda_qkv(qkv, n_head)
@@ -268,11 +270,7 @@ def flash_attention_causal_qkv(qkv: torch.Tensor, n_head: int,
         return out
     q, k, v = _split_part_major(qkv, n_head)
     out_bhtd = out.view(b, s, n_head, d).transpose(1, 2)
-    if body == "mma":
-        _generic_flash(q, k, v, out_bhtd, None, None, mask, True,
-                       float(d) ** -0.5)
-        return out
-    _launch_tma(q, k, v, out_bhtd, None, mask, True, float(d) ** -0.5,
+    _launch_tma(q, k, v, out_bhtd, None, None, mask, True, float(d) ** -0.5,
                 "tt_flash_tma (C)")
     flash_attention_causal_qkv.launches += 1
     return out
@@ -322,33 +320,21 @@ def flash_attention_plain(q, k, v, bias=None, kv_valid=None, causal=False,
                    q.dtype if grouped else torch.float32)
 
 
-def _kernel_operand(x):
-    """A view kernel D can read (d contiguous, (b, h, t) strides a
-    multiple of 8 elements, 16-byte aligned), else a contiguous copy."""
-    ok = x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:3]) \
-        and x.data_ptr() % 16 == 0
-    if ok:
-        return x
-    x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
               name):
+    """flash_attention_bhtd.cu's FMA body on (B, H, T, D) f32 q, k, v
+    (any strides, d contiguous) into the f32 view ``out``."""
     b, h, tq, d = q.shape
     tkv = k.shape[2]
     if d not in HEAD_WIDTHS:
         raise ValueError(f"kernel D takes head width {HEAD_WIDTHS}, got {d}")
-    if q.dtype not in (torch.bfloat16, torch.float32) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"kernel D wants bf16 or f32 q, k, v of one dtype, "
-                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(x.dtype != torch.float32 for x in (q, k, v, out)):
+        raise ValueError(f"the FMA body takes f32 q, k, v and output, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}")
     if k.shape != (b, h, tkv, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match")
-    if out.dtype == torch.bfloat16 and q.dtype != torch.bfloat16:
-        raise ValueError("kernel D writes bf16 only from bf16 inputs")
-    q, k, v = (_kernel_operand(x) for x in (q, k, v))
+    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     dev = q.device
     if bias_vec is not None:
         bias_vec = bias_vec.to(device=dev, dtype=torch.float32).contiguous()
@@ -367,23 +353,21 @@ def _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    lib = build.library()
-    build.check(lib.tt_flash_bhtd(
+    build.check(build.library().tt_flash_bhtd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.addressof(strides), b, h, tq, tkv, d,
-        int(q.dtype == torch.bfloat16), int(out.dtype == torch.bfloat16),
-        ptr(bias_vec), ptr(bias_full), ptr(mask), scale, int(causal),
-        build.stream_ptr()), name)
+        ctypes.addressof(strides), b, h, tq, tkv, d, ptr(bias_vec),
+        ptr(bias_full), ptr(mask), scale, int(causal), build.stream_ptr()),
+        name)
 
 
 def attention_body(dtype: torch.dtype, d: int, route: str) -> str:
     """The CUDA body that runs an attention call of ``route`` ("B", "C",
     "D1" or "D2") on (dtype, head width d): "qkv", the fused-qkv body of
     csrc/flash_attention.cu (bf16 B and C at width 64); "tma", its
-    generic body over strided views (bf16 D1 at widths 32, 64, 128, B and
-    C at 32 and 128); "mma", the mma.sync body of flash_attention_bhtd.cu
-    (D2 in bf16, and width 16); "fma", its f32 body (D1 and D2 on f32
-    inputs). Raises for what no body takes."""
+    generic body over strided views (every other bf16 call: D1 and D2 at
+    widths 16, 32, 64 and 128, B and C at 16, 32 and 128); "fma", the f32
+    body of flash_attention_bhtd.cu (D1 and D2 on f32 inputs). Raises for
+    what no body takes."""
     if route not in ("B", "C", "D1", "D2"):
         raise ValueError(f"unknown attention route {route!r}")
     if d not in HEAD_WIDTHS:
@@ -393,8 +377,6 @@ def attention_body(dtype: torch.dtype, d: int, route: str) -> str:
         return "fma"
     if dtype != torch.bfloat16:
         raise ValueError(f"kernel {route} does not take {dtype}")
-    if route == "D2" or d not in TMA_WIDTHS:
-        return "mma"
     return "qkv" if route in ("B", "C") and d == 64 else "tma"
 
 
@@ -465,21 +447,71 @@ def _tma_operand(x):
     return x, tma_layout(x)
 
 
-def _launch_tma(q, k, v, out, bias_vec, mask, causal, scale, name):
-    """The wgmma + TMA body on (B, H, T, D) bf16 q, k, v into the bf16
-    (B, H, T, D) view ``out`` (d contiguous); bias_vec (H, 2T-1), mask
-    (B, T) additive, both f32 or None."""
-    b, h, t, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape or out.shape != q.shape:
+def tma_smem_bytes(d: int, tkv: int, window: bool) -> int:
+    """Dynamic shared memory of the TMA body's block (``smem_bytes`` in
+    csrc/flash_attention.cu): the 1024-byte alignment slack, two Q tiles
+    and a 3-stage K/V ring of 64-row tiles, 128 bytes of barriers, the
+    key mask over Tkv padded to a tile and, with a Toeplitz bias
+    (``window``), its two windows of Tkv + 130 deltas, in f32."""
+    tile = TMA_ROWS * d * 2
+    tkpad = -(-tkv // TMA_ROWS) * TMA_ROWS
+    floats = tkpad + (2 * (tkpad + TMA_BQ + 2) if window else 0)
+    return 1024 + 8 * tile + 128 + 4 * floats
+
+
+def _bias_operand(bias_full, h, tq, tkv, device):
+    """(the (H, Tq, ld) f32 bias the TMA body reads, ld): rows of ld >=
+    Tkv floats, ld a multiple of 4, so each row starts 16 bytes apart of
+    a 16-byte aligned base and a thread's key pairs are 8-byte loads;
+    padded with zeros (the body reads no key past Tkv)."""
+    bias_full = bias_full.to(device=device, dtype=torch.float32)
+    if tuple(bias_full.shape) != (h, tq, tkv):
+        raise ValueError(f"bias must be ({h}, {tq}, {tkv})")
+    ld = -(-tkv // 4) * 4
+    if ld != tkv:
+        bias_full = torch.nn.functional.pad(bias_full, (0, ld - tkv))
+    bias_full = bias_full.contiguous()
+    if bias_full.data_ptr() % 16:
+        bias_full = bias_full.clone()
+    return bias_full, ld
+
+
+def _tma_args(q, k, v, out, bias_vec, bias_full, mask, causal):
+    """The host side of one call of the TMA body, checked: (q, k, v as
+    read, each a view or a copy, the 24 map numbers, the Toeplitz vector,
+    the materialized bias and its row length, the mask). q (B, H, Tq, D),
+    k and v (B, H, Tkv, D) bf16; out (B, H, Tq, D) bf16 or f32 with d
+    contiguous; at most one of bias_vec (H, Tq + Tkv - 1) and bias_full
+    (H, Tq, Tkv); mask (B, Tkv) additive or None. Raises ValueError for
+    what the body does not take, naming the shared-memory limit when Tkv
+    is too long for the block's mask and bias window."""
+    b, h, tq, d = q.shape
+    tkv = k.shape[2]
+    if k.shape != (b, h, tkv, d) or v.shape != k.shape or \
+            out.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} and out {tuple(out.shape)} "
-                         f"differ")
-    if any(x.dtype != torch.bfloat16 for x in (q, k, v, out)):
-        raise ValueError("the TMA body takes bf16 q, k, v and output")
+                         f"do not match")
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise ValueError("the TMA body takes bf16 q, k and v")
+    if out.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the TMA body writes bf16 or f32, not {out.dtype}")
     if out.stride(3) != 1:
         raise ValueError("the output's d must be contiguous")
-    geom = []
-    ops = []
+    if bias_vec is not None and bias_full is not None:
+        raise ValueError("the TMA body takes one bias")
+    if out.dtype == torch.bfloat16 and (
+            bias_full is not None or (causal and bias_vec is not None)):
+        raise ValueError("a bf16 output takes no materialized bias, and no "
+                         "bias when causal")
+    window = bias_full is None and (bias_vec is not None or not causal)
+    need = tma_smem_bytes(d, tkv, window)
+    if need > TMA_SMEM_LIMIT:
+        raise ValueError(
+            f"the TMA body's block needs {need} bytes of shared memory for "
+            f"{tkv} keys at head width {d}, over the card's "
+            f"{TMA_SMEM_LIMIT}")
+    ops, geom = [], []
     for x in (q, k, v):
         x, lay = _tma_operand(x)
         ops.append(x)
@@ -487,41 +519,60 @@ def _launch_tma(q, k, v, out, bias_vec, mask, causal, scale, name):
     dev = q.device
     if bias_vec is not None:
         bias_vec = bias_vec.to(device=dev, dtype=torch.float32).contiguous()
-        if tuple(bias_vec.shape) != (h, 2 * t - 1):
-            raise ValueError(f"Toeplitz bias must be ({h}, {2 * t - 1})")
+        if tuple(bias_vec.shape) != (h, tq + tkv - 1):
+            raise ValueError(f"Toeplitz bias must be ({h}, {tq + tkv - 1})")
+    ld = 0
+    if bias_full is not None:
+        bias_full, ld = _bias_operand(bias_full, h, tq, tkv, dev)
     if mask is not None:
-        mask = mask.to(dev).expand(b, t).contiguous()
+        mask = mask.to(dev).expand(b, tkv).contiguous()
+    return ops, geom, bias_vec, bias_full, ld, mask
+
+
+def _launch_tma(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
+                name):
+    """The wgmma + TMA body (``_tma_args`` says what it takes)."""
+    b, h, tq, d = q.shape
+    ops, geom, bias_vec, bias_full, ld, mask = _tma_args(
+        q, k, v, out, bias_vec, bias_full, mask, causal)
     geom = (ctypes.c_longlong * 24)(*geom)  # alive until the call returns
     ostr = (ctypes.c_longlong * 3)(*out.stride()[:3])
-    lib = build.library()
-    build.check(lib.tt_flash_tma(
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    build.check(build.library().tt_flash_tma(
         *(x.data_ptr() for x in ops), out.data_ptr(),
-        ctypes.addressof(geom), ctypes.addressof(ostr), b, h, t, d,
-        None if bias_vec is None else bias_vec.data_ptr(),
-        None if mask is None else mask.data_ptr(), scale, int(causal),
-        build.stream_ptr()), name)
+        ctypes.addressof(geom), ctypes.addressof(ostr), b, h, tq,
+        k.shape[2], d, ptr(bias_vec), ptr(bias_full), ld, ptr(mask), scale,
+        int(causal), int(out.dtype == torch.float32), build.stream_ptr()),
+        name)
+
+
+def _launch_d_body(route, q, k, v, out, bias_vec, bias_full, mask, causal,
+                   scale):
+    """Kernel D1 or D2 (``route``) into ``out``: bf16 q, k, v on the
+    wgmma + TMA body, f32 on flash_attention_bhtd.cu's FMA body."""
+    if attention_body(q.dtype, q.shape[-1], route) == "tma":
+        _launch_tma(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
+                    f"tt_flash_tma ({route})")
+    else:
+        _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
+                  f"tt_flash_bhtd ({route})")
 
 
 def _grouped_flash(q, k, v, out, bias_vec, bias_full, mask, causal, scale):
-    """Kernel D1 (the grouped band-bias body) into ``out``: bf16 at head
-    width 32, 64 or 128 on the wgmma + TMA body, else on
-    flash_attention_bhtd.cu."""
-    if attention_body(q.dtype, q.shape[-1], "D1") == "tma":
-        if bias_full is not None or causal or k.shape[2] != q.shape[2]:
-            raise ValueError("kernel D1 is non-causal, Tq == Tkv, with a "
-                             "Toeplitz bias")
-        _launch_tma(q, k, v, out, bias_vec, mask, False, scale,
-                    "tt_flash_tma (D1)")
-    else:
-        _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
-                  "tt_flash_bhtd (D1)")
+    """Kernel D1 (the grouped band-bias body: non-causal, Tq == Tkv, a
+    Toeplitz bias) into ``out`` (q's dtype)."""
+    _launch_d_body("D1", q, k, v, out, bias_vec, bias_full, mask, causal,
+                   scale)
     _grouped_flash.launches += 1
 
 
 def _generic_flash(q, k, v, out, bias_vec, bias_full, mask, causal, scale):
-    """Kernel D2 (the generic body) into ``out``."""
-    _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
-              "tt_flash_bhtd (D2)")
+    """Kernel D2 (the generic body) into the f32 ``out``."""
+    _launch_d_body("D2", q, k, v, out, bias_vec, bias_full, mask, causal,
+                   scale)
     _generic_flash.launches += 1
 
 
