@@ -9,12 +9,15 @@ Phases (any failure exits nonzero before the result line):
    TF32 is turned off for matmuls and cuDNN so f32 checks are true f32;
 2. build: compiles ``tortoise_tpu_torch/csrc/*.cu`` for sm_90a;
 3. kernels: each hand-written kernel (A decode trunk, B packed attention,
-   C causal qkv attention, D1/D2 strided attention, E fused LVC) against
-   its plain PyTorch version at the shapes the main paths give it, with
-   the stated tolerance (2e-2 relative for bf16 outputs, 1e-4 for E's
-   f32), and the time of both (CUDA events, after warm-up); D1 also
-   against kernel B on one qkv, and B and C at head width 128 (B there
-   timed with its plain version, SDPA and bound); the
+   C causal qkv attention, D1/D2 strided attention, E fused LVC, F int8
+   packed attention) against its plain PyTorch version at the shapes the
+   main paths give it, with the stated tolerance (2e-2 relative for bf16
+   outputs, 1e-4 for f32 ones; F's within one bf16 rounding of its plain
+   version's f32 result, 1e-5 of max |out| in f32), and the time of both
+   (CUDA
+   events, after warm-up); D1 also against kernel B on one qkv, and B
+   and C at head width 128 (B there timed with its plain version, SDPA
+   and bound); the
    serving shapes: A on ragged rows at B = 4 and 16, B at a stream
    window (8, 384) and on a batch's ragged CFG rows; D1 at a ragged
    T = 1000 and on a server batch's 16 CFG rows; D2 in each of its modes
@@ -24,7 +27,13 @@ Phases (any failure exits nonzero before the result line):
    and again at head widths 16, 32 and 128; B and C at head width 16;
    the f32 FMA body (D2 causal and D1, 1e-4, timed against SDPA in f32);
    E per hop at L = 2208 and at a 32-frame chunk (timed), at a ragged L
-   = 2186 and on two batch rows of stacked kernels;
+   = 2186 and on two batch rows of stacked kernels; B and C on an f32 qkv
+   (the FMA body, 1e-4, timed against SDPA in f32); kernel F, the
+   int8-score packed attention, at the A/B's (2, 2176) x 16 x 64 (all
+   keys valid and a ragged row; timed beside its plain version, kernel B
+   on the same qkv and its bound) and at head widths 32 and 128; then the A/B script scripts/torch_ubench_attn_int8_ab.py
+   in a fresh process, whose launch counts of F and B must equal the
+   calls it made (F's launches in the result line are that run's);
 4. end to end at full production width (random weights, bf16 + int8,
    stand-in tokens), eight requests, each with the launch counts set to 0
    before it and read after it: request 1 through the CLI at
@@ -134,6 +143,7 @@ def rel_err(torch, got, want) -> tuple:
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12
 MUFU_EXPS = 132 * 16 * 1.98e9
 
 
@@ -219,6 +229,11 @@ FMA_CASES = (("D2", 8, 16, 535, 64), ("D1", 2, 32, 2176, 32))
 # chunk, the ragged 2186 frames, then two batch rows
 E_CASES = ((2208, 1), (32, 1), (2186, 1), (2208, 2), (32, 2))
 E_HOPS = (8, 64, 256)
+# F: the A/B's (b, t, heads, head width) and row 1's valid length in its
+# ragged case; the other head widths at (2, 300) x 4 heads
+F_SHAPE = (2, 2176, 16, 64)
+F_RAGGED = 1813
+F_WIDTHS = (32, 128)
 
 
 def bf16_qkv(torch, g, b, t, h, d):
@@ -1017,6 +1032,183 @@ def check_kernel_e(torch, results):
           f"{main['bound_ms']:.4f} ms")
     results["E"] = dict(max_abs_err=worst, library_ms=None,
                         bound_by=max(bound_by, key=bound_by.get), **main)
+
+
+def check_f32_packed_and_causal(torch):
+    """Kernels B and C on an f32 qkv, as the Pallas kernels take it: the
+    FMA body of flash_attention_bhtd.cu on strided views, counted as B or
+    C. B at the denoiser's (2, 2176) x 16 x 64 with the rel-pos bias, C
+    at the latent pass's (8, 535) x 16 x 64 with its key mask; each held
+    against its plain version at 1e-4 and timed (kernel, plain, SDPA on
+    the same f32 views, the f32 FMA bound)."""
+    from tortoise_tpu_torch.ops.cuda import flash_attention as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    counted = (K.flash_attention_packed, K.flash_attention_causal_qkv,
+               K._grouped_flash, K._generic_flash)
+    (b, t, _, h), (bc, hc, s) = B_CASES[0], C_SHAPE
+    for route, b, h, t in (("B", b, h, t), ("C", bc, hc, s)):
+        qkv = torch.randn((b, t, 3 * h * 64), generator=g, device=dev)
+        if route == "B":
+            vec = K.relpos_bias_vector(
+                torch.randn((32, h), generator=g, device=dev) * 0.3, t)
+            valid = None
+
+            def call():
+                return K.flash_attention_packed(qkv, h, bias_vec=vec)
+
+            def plain():
+                return K.flash_attention_packed_plain(qkv, h, None, vec)
+            q, k, v = views(qkv, h, 64)
+            add = K._toeplitz_full(vec, t, t)[None]
+        else:
+            valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+            valid[:, 1 + 30:1 + 32] = False
+            vec = None
+
+            def call():
+                return K.flash_attention_causal_qkv(qkv, h, valid)
+
+            def plain():
+                return K.flash_attention_causal_qkv_plain(qkv, h, valid)
+            q, k, v = K._split_part_major(qkv, h)
+            add = K._causal_add(t, t, dev)[None, None] + \
+                K._additive_mask(valid)[:, None, None, :]
+        label = f"{route} f32 FMA body ({b}, {t}) x {h} heads of 64"
+        before = [fn.launches for fn in counted]
+        got = call()
+        want = [n + (i == "BC".index(route)) for i, n in enumerate(before)]
+        if [fn.launches for fn in counted] != want or \
+                got.dtype != torch.float32:
+            fail(f"{label} was not one f32 launch of {route}")
+        torch.cuda.synchronize()
+        _check(torch, label, got, plain(), 1e-4, 0.0)
+        ms = cuda_ms(torch, call, iters=3)
+        plain_ms = cuda_ms(torch, plain, iters=3)
+        lib_ms = sdpa_ms(torch, q, k, v, add, label)
+        pairs = attention_pairs(b, h, t, t, route == "C")
+        fma = bound(nbytes(qkv, valid, vec, got), flops=4.0 * 64 * pairs,
+                    flop_rate=F32_FLOPS, exps=pairs)
+        print(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"SDPA (f32) {lib_ms:.3f} ms, f32 bound {fma['bound_ms']:.4f} "
+              f"ms ({fma['bound_by']})")
+        del qkv, q, k, v, got, add
+
+
+def _check_f(torch, K, name, qkv, h, valid, table, got, worst):
+    """Kernel F's output against its plain version. Both quantize the
+    same f32 values of qkv and part only in the order of l's sum, so an
+    f32 output is held at 1e-5 of max |out|, and a bf16 one, element by
+    element, within one bf16 rounding of the plain version's f32 result:
+    |got - want| <= 2^-8 |want| + 1e-5 max |want|. (Q's scale taken per
+    head instead of per 128-row block moves the output of N(0, 1) inputs
+    by ~2e-2 of max |out|.) The error printed and kept is against the
+    plain version in qkv's dtype."""
+    want32 = K.flash_packed_i8_plain(qkv.float(), h, valid, table)
+    if got.dtype == torch.float32:
+        return _check(torch, name, got, want32, 1e-5, worst)
+    over = ((got.float() - want32).abs() - 2.0 ** -8 * want32.abs()).max()
+    slack = 1e-5 * float(want32.abs().max())
+    print(f"  {name}: past one bf16 rounding of the f32 plain result by "
+          f"{float(over):.3e} (allowed {slack:.3e})")
+    if not float(over) <= slack:
+        fail(f"{name} is more than one bf16 rounding from its plain version")
+    err, _ = rel_err(torch, got, want32.to(got.dtype))
+    return max(worst, err)
+
+
+def check_kernel_f(torch, results):
+    """Kernel F, the int8-score packed attention, at the A/B's F_SHAPE in
+    bf16: all keys valid, then row 1 valid to F_RAGGED, each one launch
+    of the quantize pass and one of the attention kernel, held to its
+    plain version by ``_check_f``; the first timed beside its plain
+    version, its quantize pass alone and kernel B on the same qkv (its
+    yardstick: no one PyTorch call computes F), with its bound. Then 4
+    heads of F_WIDTHS at a ragged (2, 300), in bf16 and f32."""
+    import numpy as np
+
+    from tortoise_tpu_torch.ops.cuda import flash_attention as KB
+    from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    b, t, h, d = F_SHAPE
+    worst, main = 0.0, None
+    qkv = torch.as_tensor(rng.normal(0, 1, (b, t, 3 * h * d)).astype(
+        np.float32)).to(dev).bfloat16()
+    table = torch.as_tensor(rng.normal(0, 0.1, (32, h)).astype(
+        np.float32)).to(dev)
+    for n_valid in (None, F_RAGGED):
+        valid = torch.ones((b, t), dtype=torch.bool, device=dev)
+        if n_valid is not None:
+            valid[1, n_valid:] = False
+        label = f"F ({b}, {t}) x {h} heads of {d} valid={n_valid}"
+        before = (K.flash_packed_i8.launches, K.quantize_kv.launches)
+        got = K.flash_packed_i8(qkv, h, valid, table)
+        if (K.flash_packed_i8.launches, K.quantize_kv.launches) != (
+                before[0] + 1, before[1] + 1):
+            fail(f"{label} was not one launch of each of F's kernels")
+        worst = _check_f(torch, K, label, qkv, h, valid, table, got, worst)
+        if main is not None:
+            continue
+        ms = cuda_ms(torch, lambda: K.flash_packed_i8(qkv, h, valid, table))
+        plain_ms = cuda_ms(torch, lambda: K.flash_packed_i8_plain(
+            qkv, h, valid, table), iters=3)
+        b_ms = cuda_ms(torch, lambda: KB.flash_attention_packed(
+            qkv, h, valid, bias_table=table))
+        quant_ms = cuda_ms(torch, lambda: K.quantize_kv(qkv, h))
+        pairs = float(b * h * t * t)
+        # the function's work: q . k and p . v (2D int8 ops a pair each);
+        # the second score pass and the int8 K/V round trip through memory
+        # are costs of this design, not of the function
+        f_bound = bound(nbytes(qkv, valid, table, got),
+                        flops=4.0 * d * pairs, flop_rate=INT8_OPS,
+                        exps=pairs)
+        print(f"  {label}: kernel {ms:.4f} ms (its quantize pass alone "
+              f"{quant_ms:.4f} ms), plain {plain_ms:.3f} ms, kernel B on "
+              f"the same qkv {b_ms:.4f} ms, bound {f_bound['bound_ms']:.4f} "
+              f"ms ({f_bound['bound_by']})")
+        main = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **f_bound)
+    for d in F_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((2, 300, 3 * 4 * d), device=dev).to(dtype)
+            valid = torch.arange(300, device=dev)[None, :] < torch.tensor(
+                [[300], [259]], device=dev)
+            tab = torch.randn((32, 4), device=dev) * 0.1
+            worst = _check_f(torch, K, f"F (2, 300) x 4 heads of {d} "
+                             f"{dtype}", x, 4, valid, tab,
+                             K.flash_packed_i8(x, 4, valid, tab), worst)
+    results["F"] = dict(max_abs_err=worst, **main)
+
+
+def run_int8_ab(smi) -> dict:
+    """scripts/torch_ubench_attn_int8_ab.py in a fresh process on the card
+    (kernel F against kernel B at the denoiser's shape, chained and
+    timed): it must exit 0, print F's error against B and both times, and
+    count as many launches of F, of its quantize pass and of B as the
+    calls it made. Returns its result."""
+    script = os.path.join(ROOT, "scripts", "torch_ubench_attn_int8_ab.py")
+    proc = subprocess.run([sys.executable, script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print("  A/B: " + line)
+    if proc.returncode != 0:
+        fail(f"the int8 A/B exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"ab"')]
+    if not lines:
+        fail(f"the int8 A/B printed no result line: {proc.stdout[-2000:]}")
+    ab = json.loads(lines[-1])["ab"]
+    calls, launches = ab["calls"], ab["launches"]
+    if set(launches.values()) != {calls} or "i8_ms" not in ab or \
+            not ab["i8_ms"] > 0 or not ab["bf16_ms"] > 0:
+        fail(f"the int8 A/B made {calls} calls of each variant but counted "
+             f"{launches}, or printed no times: {ab}")
+    print(f"  int8 A/B: F vs B max abs err {ab['max_abs_err']:.4f} (rel "
+          f"{ab['rel_err']:.4f}); B {ab['bf16_ms']:.4f} ms/call, F "
+          f"{ab['i8_ms']:.4f} ms/call; launches {launches} over {calls} "
+          f"calls [{smi}]")
+    return ab
 
 
 def run_request(torch, batch_size: int, out_dir: str, smi: str):
@@ -2211,6 +2403,9 @@ def main(argv=None) -> int:
     check_wide_heads(torch)
     check_fma_body(torch)
     check_kernel_e(torch, results)
+    check_f32_packed_and_causal(torch)
+    check_kernel_f(torch, results)
+    ab = run_int8_ab(smi)
     if args.profile:
         print("[profile] torch.profiler", flush=True)
         profile_phase(torch)
@@ -2236,6 +2431,9 @@ def main(argv=None) -> int:
                pallas + "flash_attention.py:549"),
         "E": ("lvc_gated_residual", "lvc_gated_residual",
               "tortoise_tpu_torch/csrc/lvc.cu", pallas + "lvc.py:50"),
+        "F": ("flash_packed_i8", "flash_packed_i8",
+              "tortoise_tpu_torch/csrc/flash_attention_int8.cu",
+              "scripts/ubench_attn_int8_ab.py:100"),
     }
     # each request is one path: counts set to 0 just before it, read just
     # after. Kernels every request of its path must launch, and kernels
@@ -2284,6 +2482,9 @@ def main(argv=None) -> int:
         for key in needs[r]:
             if c[kernels[key][1]] < 1:
                 fail(f"request {r} did not launch kernel {key}")
+        if c["flash_packed_i8"] or c["int8_quantize_kv"]:
+            fail(f"request {r} launched kernel F, which no request's path "
+                 f"runs: {c}")
     c3 = per_request[3]
     if c3["flash_attention_packed"] != 0:
         fail(f"request 3 launched kernel B: {c3}")
@@ -2292,6 +2493,7 @@ def main(argv=None) -> int:
              f"times, want 12 (4 conv blocks x 3 stages)")
     counts = {k: sum(c[w] for c in per_request.values())
               for k, (_, w, _, _) in kernels.items()}
+    counts["F"] = ab["launches"]["flash_packed_i8"]  # F's path: the A/B
 
     print("[5/5] small-input agreement (tiny f32 plane, cuda vs cpu)",
           flush=True)

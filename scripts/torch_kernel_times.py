@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Device and host times of the port's kernels B, C, D1, D2 and E on one
-NVIDIA card, for the tortoise_tpu_torch of the checkout at --root, at
-the phase-3 shapes and inputs of this checkout's chip_smoke.py (its
-B_CASES, C_SHAPE, D1_CASES, WIDE, D2_CASES, E_CASES and input
-builders); with --request3 N, also N runs of chip_smoke's request 3
+"""Device and host times of the port's kernels B, C, D1, D2, E and F on
+one NVIDIA card, for the tortoise_tpu_torch of the checkout at --root,
+at the phase-3 shapes and inputs of this checkout's chip_smoke.py (its
+B_CASES, C_SHAPE, D1_CASES, WIDE, D2_CASES, E_CASES, F_SHAPE and input
+builders; B and C on an f32 qkv and F only where the checkout has
+them); with --request3 N, also N runs of chip_smoke's request 3
 (synthesize() on the diffusion fallback and the fused LVC: kernels A, D1
-and E). Two
-checkouts compare inside one call, in turns:
+and E). Two checkouts compare inside one call, in turns:
 
     python3 scripts/torch_kernel_times.py --root _archive/parent --label parent
     python3 scripts/torch_kernel_times.py --label change
@@ -50,6 +50,17 @@ def host_us(torch, fn, n: int = 50) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / n * 1e6
+
+
+def _takes_f32(FA) -> bool:
+    """Whether this checkout's kernels B and C take an f32 qkv."""
+    import torch
+
+    try:
+        FA.attention_body(torch.float32, 64, "B")
+    except ValueError:
+        return False
+    return True
 
 
 def plane_upload(torch, smoke, emit_line, rounds: int) -> None:
@@ -205,6 +216,32 @@ def main() -> int:
         emit(f"D2 {mode}", [b, h, tq, tkv, 64],
              lambda: FA.flash_attention(q, k, v, **kw))
         del q, k, v, kw
+    # f32 B and C (the FMA body) and kernel F, where this checkout has them
+    if _takes_f32(FA):
+        b, t, _, h = smoke.B_CASES[0]
+        xf = torch.randn((b, t, 3 * h * 64), generator=g, device="cuda")
+        vec = FA.relpos_bias_vector(table(h), t)
+        emit("B f32", [b, h, t, 64],
+             lambda: FA.flash_attention_packed(xf, h, bias_vec=vec))
+        b, h, s = smoke.C_SHAPE
+        xf = torch.randn((b, s, 3 * h * 64), generator=g, device="cuda")
+        valid = torch.ones((b, s), dtype=torch.bool, device="cuda")
+        valid[:, 31:33] = False
+        emit("C f32", [b, h, s, 64],
+             lambda: FA.flash_attention_causal_qkv(xf, h, valid))
+        del xf
+    try:
+        from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as FI
+    except ImportError:
+        FI = None
+    if FI is not None:
+        b, t, h, d = smoke.F_SHAPE
+        xi = smoke.bf16_qkv(torch, g, b, t, h, d)
+        valid = torch.ones((b, t), dtype=torch.bool, device="cuda")
+        tab = table(h) / 3
+        emit("F", [b, h, t, d], lambda: FI.flash_packed_i8(xi, h, valid, tab))
+        emit("F quantize pass", [b, h, t, d], lambda: FI.quantize_kv(xi, h))
+        del xi
     for L, b in smoke.E_CASES:
         for hop in smoke.E_HOPS:
             e_args = smoke.lvc_inputs(torch, g, b, L, hop)

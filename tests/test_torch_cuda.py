@@ -5,7 +5,8 @@ file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerance: 2e-2 of the reference's max magnitude (bf16 outputs, another
-summation order); 1e-4 for f32 inputs (kernel D's f32 body, kernel E);
+summation order); 1e-4 for f32 inputs (the f32 body of B, C and D,
+kernel E); 1e-2 for kernel F (round(127 p) on either side of a tie);
 the in-kernel sampler must pick the plain sampler's token on the
 kernel's own logits.
 """
@@ -21,6 +22,7 @@ from tortoise_tpu.io.checkpoint import random_ar_params
 from tortoise_tpu_torch.ops.basic import pdot_int8act
 from tortoise_tpu_torch.ops.cuda import decode_trunk as TA
 from tortoise_tpu_torch.ops.cuda import flash_attention as TF
+from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as TI
 from tortoise_tpu_torch.ops.cuda import lvc as TL
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline.ar_stage import quantize_ar
@@ -425,6 +427,133 @@ def test_packed_and_causal_kernels_take_head_width_16(cuda_device, t):
                                                before[2], before[3]]
     assert got.dtype == torch.bfloat16
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,b,t", [("B", 2, 2176), ("C", 8, 535)])
+def test_packed_and_causal_kernels_take_f32_on_card(cuda_device, kernel, b,
+                                                    t):
+    """Kernels B and C on an f32 qkv, as the Pallas kernels take it (the
+    JAX denoiser's f32 plane with use_flash): the FMA body on strided
+    views of the qkv, an f32 output, counted as B or C and not as D; at
+    the denoiser's (2, 2176) and the latent pass's (8, 535) x 16 x 64."""
+    h = 16
+    qkv = torch.tensor(_qkv(b, t, h, 64, 19)).to(cuda_device)
+    valid = torch.ones((b, t), dtype=torch.bool, device=cuda_device)
+    valid[-1, t - 37:] = False
+    counted = (TF.flash_attention_packed, TF.flash_attention_causal_qkv,
+               TF._grouped_flash, TF._generic_flash)
+    before = [fn.launches for fn in counted]
+    if kernel == "B":
+        bias_vec = TF.relpos_bias_vector(
+            torch.randn(32, h, device=cuda_device) * 0.3, t)
+        got = TF.flash_attention_packed(qkv, h, valid, bias_vec=bias_vec)
+        want = TF.flash_attention_packed_plain(qkv, h, valid, bias_vec)
+        after = [before[0] + 1, *before[1:]]
+    else:
+        got = TF.flash_attention_causal_qkv(qkv, h, valid)
+        want = TF.flash_attention_causal_qkv_plain(qkv, h, valid)
+        after = [before[0], before[1] + 1, *before[2:]]
+    assert [fn.launches for fn in counted] == after
+    assert got.dtype == torch.float32
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+
+
+def _i8_inputs(b, t, h, d, n_valid, seed, device):
+    rng = np.random.default_rng(seed)
+    qkv = torch.tensor(rng.normal(0, 1, (b, t, 3 * h * d)).astype(
+        np.float32)).to(device)
+    table = torch.tensor(rng.normal(0, 0.1, (32, h)).astype(
+        np.float32)).to(device)
+    valid = torch.ones((b, t), dtype=torch.bool, device=device)
+    if n_valid is not None:
+        valid[1, n_valid:] = False
+    return qkv, table, valid
+
+
+def _assert_i8_close(got, qkv, h, valid, table):
+    """Kernel F's output against its plain version. Both quantize the
+    same f32 values of qkv and part only in the order of l's sum: an f32
+    output within 1e-5 of max |out|, a bf16 one within one bf16 rounding
+    of the plain version's f32 result, element by element."""
+    want = TI.flash_packed_i8_plain(qkv.float(), h, valid, table)
+    assert got.shape == want.shape
+    if got.dtype == torch.float32:
+        assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-5)
+        return
+    err = (got.float() - want).abs()
+    bound = 2.0 ** -8 * want.abs() + 1e-5 * want.abs().max()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [None, 1813, 0])
+def test_int8_kernel_f_matches_plain_on_card(cuda_device, n_valid):
+    """Kernel F at the A/B's (2, 2176) x 16 x 64 in bf16, all keys valid,
+    row 1 valid to 1813, and row 1 with no valid key: one launch of the
+    quantize pass and one of the attention kernel, within one bf16
+    rounding of its plain version."""
+    qkv, table, valid = _i8_inputs(2, 2176, 16, 64, n_valid, 23, cuda_device)
+    qkv = qkv.bfloat16()
+    before = (TI.flash_packed_i8.launches, TI.quantize_kv.launches)
+    got = TI.flash_packed_i8(qkv, 16, valid, table)
+    assert (TI.flash_packed_i8.launches,
+            TI.quantize_kv.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    _assert_i8_close(got, qkv, 16, valid, table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,t", [(32, 200), (64, 300), (128, 130)])
+def test_int8_kernel_f_takes_its_widths_and_dtypes_on_card(cuda_device,
+                                                           dtype, d, t):
+    """Kernel F at head widths 32, 64 and 128 on bf16 and f32 qkv, at
+    lengths that pad to 128 rows, with a ragged row."""
+    qkv, table, valid = _i8_inputs(2, t, 4, d, t - 41, d + t, cuda_device)
+    qkv = qkv.to(dtype)
+    got = TI.flash_packed_i8(qkv, 4, valid, table)
+    assert got.dtype == dtype
+    _assert_i8_close(got, qkv, 4, valid, table)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_f_scales_q_per_128_row_block_on_card(cuda_device):
+    """Q scaled 50x in one 128-row block of one head: its scale is that
+    block's alone, and the blocks beside it and the other heads keep
+    their own. Q's scale taken per head instead moves this output by
+    8.4e-2 of max |out| (the plain version so changed, on the CPU),
+    against the f32 tolerance of 1e-5."""
+    b, t, h, d = 2, 384, 4, 64
+    qkv, table, valid = _i8_inputs(b, t, h, d, 300, 31, cuda_device)
+    q0 = qkv.view(b, t, h, 3, d)[:, :, 0, 0]  # head 0's q
+    q0[:, 128:256] *= 50.0
+    got = TI.flash_packed_i8(qkv, h, valid, table)
+    _assert_i8_close(got, qkv, h, valid, table)
+
+
+@pytest.mark.cuda
+def test_int8_quantize_pass_matches_plain_on_card(cuda_device):
+    """Kernel F's quantize pass: ki and the scales equal the plain
+    quantizer's bit for bit, and vit is vi transposed with the keys of
+    each 32-key chunk in the order the P@V fragments read them."""
+    b, t, h, d = 2, 300, 4, 64
+    qkv, _, _ = _i8_inputs(b, t, h, d, None, 29, cuda_device)
+    ki, vit, scales = TI.quantize_kv(qkv.bfloat16(), h)
+    tp = TI.padded_length(t)
+    x = torch.nn.functional.pad(qkv.bfloat16().float(), (0, 0, 0, tp - t))
+    _, k, v = TF._split_packed(x, h)
+    want_k, want_v, sk, sv = TI.quantize_kv_plain(k, v)
+    assert torch.equal(ki, want_k)
+    assert torch.equal(scales, torch.stack([sk, sv], dim=-1))
+    j = torch.arange(32)
+    nt, w = j >> 3, j & 7
+    slot = 16 * (nt >> 1) + 4 * (w >> 1) + ((nt & 1) << 1) + (w & 1)
+    key = torch.empty_like(slot)
+    key[slot] = j  # the key each slot of a 32-key chunk holds
+    order = (torch.arange(0, tp, 32)[:, None] + key[None]).flatten()
+    assert torch.equal(vit, want_v[:, :, order.to(cuda_device)]
+                       .transpose(-1, -2))
 
 
 @pytest.mark.cuda

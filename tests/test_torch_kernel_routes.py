@@ -19,6 +19,7 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 128, "C", "tma"), (BF16, 16, "C", "tma"), (BF16, 32, "D2", "tma"),
     (BF16, 64, "D2", "tma"), (BF16, 16, "D2", "tma"), (BF16, 128, "D2", "tma"),
     (F32, 32, "D1", "fma"), (F32, 64, "D2", "fma"), (F32, 16, "D2", "fma"),
+    (F32, 64, "B", "fma"), (F32, 64, "C", "fma"),
 ])
 def test_attention_body_picks_the_body(dtype, d, route, want):
     assert TF.attention_body(dtype, d, route) == want
@@ -26,9 +27,9 @@ def test_attention_body_picks_the_body(dtype, d, route, want):
 
 def test_attention_body_has_one_bf16_design():
     """Every bf16 call runs on csrc/flash_attention.cu (the generic body,
-    or the fused-qkv body for B and C at width 64), every f32 call of D1
-    and D2 on the FMA body: no other body is named for any (dtype, head
-    width, route) the wrappers accept."""
+    or the fused-qkv body for B and C at width 64), every f32 call of B,
+    C, D1 and D2 on the FMA body: no other body is named for any (dtype,
+    head width, route) the wrappers accept."""
     taken = {}
     for dtype in (BF16, F32, torch.float16):
         for d in (8, 16, 32, 48, 64, 128, 256):
@@ -40,15 +41,14 @@ def test_attention_body_has_one_bf16_design():
                     pass
     assert set(taken.values()) == {"tma", "qkv", "fma"}
     assert {k for k, v in taken.items() if v == "fma"} == {
-        (F32, d, r) for d in TF.HEAD_WIDTHS for r in ("D1", "D2")}
+        (F32, d, r) for d in TF.HEAD_WIDTHS for r in ("B", "C", "D1", "D2")}
     assert {k for k, v in taken.items() if v == "qkv"} == {
         (BF16, 64, "B"), (BF16, 64, "C")}
-    assert len(taken) == 8 + 4 * 4
+    assert len(taken) == 16 + 16
 
 
 @pytest.mark.parametrize("dtype,d,route", [
-    (F32, 64, "B"), (F32, 64, "C"), (torch.float16, 64, "D1"),
-    (BF16, 48, "D1"), (BF16, 64, "E"),
+    (torch.float16, 64, "D1"), (BF16, 48, "D1"), (BF16, 64, "E"),
 ])
 def test_attention_body_refuses_what_no_body_takes(dtype, d, route):
     with pytest.raises(ValueError):

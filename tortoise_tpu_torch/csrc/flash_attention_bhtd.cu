@@ -1,15 +1,18 @@
 // Exact-softmax attention on f32 inputs over strided (B, H, T, D) views
-// (kernels D1 and D2 on the f32 parity plane).
+// (every attention kernel on the f32 parity plane).
 //
-// Replaces tortoise_tpu/ops/pallas/flash_attention.py::flash_attention,
-// both of its bodies, where q, k and v are f32 (bf16 inputs run the
-// wgmma + TMA body of flash_attention.cu at every head width):
-//   D1 _grouped_flash / _attn_kernel_rowblock — non-causal, square, T5
-//      band + far-field bias;
-//   D2 _attn_kernel — the generic online-softmax body: no bias, a
-//      materialized (H, Tq, Tkv) bias, or the Toeplitz bucket bias; an
-//      optional causal flag.
-// Both are one function here, with an f32 output: the band + far-field
+// Replaces, where q, k and v are f32 (bf16 inputs run the wgmma + TMA
+// body of flash_attention.cu), in tortoise_tpu/ops/pallas/flash_attention.py:
+//   B flash_attention_packed — non-causal, T5 bias, key mask, on views
+//      of the per-head-interleaved qkv;
+//   C flash_attention_causal_qkv — causal, key mask, on views of the
+//      part-major qkv;
+//   D1 flash_attention's _grouped_flash / _attn_kernel_rowblock —
+//      non-causal, square, T5 band + far-field bias;
+//   D2 flash_attention's _attn_kernel — the generic online-softmax body:
+//      no bias, a materialized (H, Tq, Tkv) bias, or the Toeplitz bucket
+//      bias; an optional causal flag.
+// All are one function here, with an f32 output: the band + far-field
 // bias and the bucket tiles are a per-head Toeplitz vector
 // bias[h, (j - i) + Tq - 1] (bucket ids depend only on j - i), and the key
 // mask is an additive 0 / -1e30 row per batch row. q, k, v and the output
@@ -121,11 +124,11 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace
 
-// Kernels D1/D2 on f32 inputs. q (B, H, Tq, D), k and v (B, H, Tkv, D) as
-// strided f32 views (d contiguous); strides[12] = element strides of
-// (b, h, t) for q, k, v, out; out (B, H, Tq, D) f32. bias_vec
-// (H, Tq + Tkv - 1), bias_full (H, Tq, Tkv) and mask (B, Tkv) are f32 or
-// null.
+// Kernels B, C, D1 and D2 on f32 inputs. q (B, H, Tq, D), k and v
+// (B, H, Tkv, D) as strided f32 views (d contiguous); strides[12] =
+// element strides of (b, h, t) for q, k, v, out; out (B, H, Tq, D) f32.
+// bias_vec (H, Tq + Tkv - 1), bias_full (H, Tq, Tkv) and mask (B, Tkv)
+// are f32 or null.
 TT_EXPORT int tt_flash_bhtd(const void* q, const void* k, const void* v,
                             void* out, const long long* strides, int B, int H,
                             int Tq, int Tkv, int D, const float* bias_vec,

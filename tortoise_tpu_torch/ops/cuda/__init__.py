@@ -5,6 +5,7 @@ library is compiled on the first CUDA call (see ``build``)."""
 
 def _wrappers():
     from tortoise_tpu_torch.ops.cuda import flash_attention as fa
+    from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as fi
     from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
     from tortoise_tpu_torch.ops.cuda.lvc import lvc_gated_residual
 
@@ -13,7 +14,9 @@ def _wrappers():
             "flash_attention_causal_qkv": fa.flash_attention_causal_qkv,
             "flash_attention_grouped": fa._grouped_flash,
             "flash_attention_generic": fa._generic_flash,
-            "lvc_gated_residual": lvc_gated_residual}
+            "lvc_gated_residual": lvc_gated_residual,
+            "flash_packed_i8": fi.flash_packed_i8,
+            "int8_quantize_kv": fi.quantize_kv}
 
 
 def launch_counts() -> dict:

@@ -36,6 +36,8 @@ SIGNATURES = {
     "tt_flash_tma": (_P,) * 6 + (_I,) * 5 + (_P, _P, _LL, _P, _F, _I, _I,
                                             _P),
     "tt_flash_bhtd": (_P,) * 5 + (_I,) * 5 + (_P,) * 3 + (_F, _I, _P),
+    "tt_int8_quantize_kv": (_P,) + (_I,) * 6 + (_P,) * 4,
+    "tt_flash_packed_i8": (_P, _I) + (_P,) * 5 + (_I,) * 5 + (_F, _P, _P),
     "tt_lvc_gated_residual": (_P,) * 5 + (_I,) * 9 + (_LL, _LL, _P),
     "tt_decode_trunk": ((_I,) * 7 + (_F,) + (_P,) * 22 + (_I,) + (_P,) * 10
                         + (_F, _I, _F, _F) + (_P,) * 4),

@@ -30,8 +30,9 @@ Two CUDA sources carry them (``attention_body`` picks one per call):
   (B, T, H, D) memory. A materialized bias is read as (H, Tq, ld) with
   ld a multiple of 4 (``_bias_operand`` pads it). B and C at width 64 run
   its fused-qkv body (one map over the whole qkv).
-- ``csrc/flash_attention_bhtd.cu``: D1 and D2 on f32 inputs (an FMA body),
-  over (b, h, t) strides.
+- ``csrc/flash_attention_bhtd.cu``: every f32 call (an FMA body), over
+  (b, h, t) strides: D1 and D2, and B and C on strided views of an f32
+  qkv, as the Pallas kernels take either dtype.
 
 The kernels walk the keys in shared-memory tiles with an online softmax,
 so the (Tq, Tkv) scores never reach device memory; they are bound by
@@ -181,9 +182,9 @@ def flash_attention_causal_qkv_plain(qkv, n_head, kv_valid=None
 
 
 def _check_cuda_qkv(qkv, n_head):
-    if qkv.dtype != torch.bfloat16 or qkv.dim() != 3:
-        raise ValueError(f"kernel wants a (B, T, 3HD) bfloat16 qkv, got "
-                         f"{tuple(qkv.shape)} {qkv.dtype}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32) or qkv.dim() != 3:
+        raise ValueError(f"kernel wants a (B, T, 3HD) bfloat16 or float32 "
+                         f"qkv, got {tuple(qkv.shape)} {qkv.dtype}")
     d = qkv.shape[-1] // (3 * n_head)
     if 3 * n_head * d != qkv.shape[-1]:
         raise ValueError(f"{qkv.shape[-1]} qkv channels do not split over "
@@ -211,18 +212,38 @@ def flash_attention_packed(qkv: torch.Tensor, n_head: int,
     """Kernel B. qkv (B, T, 3*H*D) per-head interleaved; kv_valid (B, T)
     bool or None; the bias from a (NB, H) bucket table or a prebuilt
     (H, 2T-1) ``bias_vec``. Returns (B, T, H*D) in qkv's dtype. On a card
-    head width 64 runs the fused-qkv body, 16, 32 and 128 the generic
-    wgmma + TMA body on strided views of qkv."""
+    a bf16 qkv at head width 64 runs the fused-qkv body, at 16, 32 and
+    128 the generic wgmma + TMA body on strided views of qkv; an f32 qkv
+    runs the FMA body on those views."""
     t = qkv.shape[1]
     if bias_vec is None and bias_table is not None:
         bias_vec = relpos_bias_vector(bias_table, t, bias_scale,
                                       bias_max_distance)
     if not qkv.is_cuda:
         return flash_attention_packed_plain(qkv, n_head, kv_valid, bias_vec)
+    return launch_packed(qkv, n_head,
+                         _device_mask(kv_valid, qkv.shape[0], t, qkv.device),
+                         bias_vec)
+
+
+flash_attention_packed.launches = 0
+
+
+def launch_packed(qkv: torch.Tensor, n_head: int,
+                  mask: Optional[torch.Tensor],
+                  bias_vec: Optional[torch.Tensor]) -> torch.Tensor:
+    """Kernel B on the card with its side inputs built: ``mask`` the
+    (B, T) f32 additive key mask of ``_device_mask`` or None, ``bias_vec``
+    the (H, 2T-1) Toeplitz bias or None. A caller that runs many calls on
+    one mask and bias builds them once (the int8 A/B)."""
     qkv, d = _check_cuda_qkv(qkv, n_head)
-    b = qkv.shape[0]
+    b, t = qkv.shape[:2]
+    if mask is not None:
+        if tuple(mask.shape) != (b, t) or mask.dtype != torch.float32:
+            raise ValueError(f"mask must be f32 (B, T) = {(b, t)}, got "
+                             f"{tuple(mask.shape)} {mask.dtype}")
+        mask = mask.contiguous()
     out = torch.empty((b, t, n_head * d), dtype=qkv.dtype, device=qkv.device)
-    mask = _device_mask(kv_valid, b, t, qkv.device)
     body = attention_body(qkv.dtype, d, "B")
     if body == "qkv":
         bias = None if bias_vec is None else bias_vec.to(
@@ -238,22 +259,20 @@ def flash_attention_packed(qkv: torch.Tensor, n_head: int,
         return out
     q, k, v = _split_packed(qkv, n_head)
     out_bhtd = out.view(b, t, n_head, d).transpose(1, 2)
-    _launch_tma(q, k, v, out_bhtd, bias_vec, None, mask, False,
-                float(d) ** -0.5, "tt_flash_tma (B)")
+    _launch_body("B", q, k, v, out_bhtd, bias_vec, None, mask, False,
+                 float(d) ** -0.5)
     flash_attention_packed.launches += 1
     return out
-
-
-flash_attention_packed.launches = 0
 
 
 def flash_attention_causal_qkv(qkv: torch.Tensor, n_head: int,
                                kv_valid: Optional[torch.Tensor] = None,
                                ) -> torch.Tensor:
     """Kernel C. qkv (B, S, 3*H*D) part-major; kv_valid (B, S) bool or
-    None. Returns (B, S, H*D) in qkv's dtype. On a card head width 64
-    runs the fused-qkv body, 16, 32 and 128 the generic wgmma + TMA body
-    (causal) on strided views of qkv."""
+    None. Returns (B, S, H*D) in qkv's dtype. On a card a bf16 qkv at
+    head width 64 runs the fused-qkv body, at 16, 32 and 128 the generic
+    wgmma + TMA body (causal) on strided views of qkv; an f32 qkv runs
+    the FMA body on those views."""
     if not qkv.is_cuda:
         return flash_attention_causal_qkv_plain(qkv, n_head, kv_valid)
     qkv, d = _check_cuda_qkv(qkv, n_head)
@@ -270,8 +289,8 @@ def flash_attention_causal_qkv(qkv: torch.Tensor, n_head: int,
         return out
     q, k, v = _split_part_major(qkv, n_head)
     out_bhtd = out.view(b, s, n_head, d).transpose(1, 2)
-    _launch_tma(q, k, v, out_bhtd, None, None, mask, True, float(d) ** -0.5,
-                "tt_flash_tma (C)")
+    _launch_body("C", q, k, v, out_bhtd, None, None, mask, True,
+                 float(d) ** -0.5)
     flash_attention_causal_qkv.launches += 1
     return out
 
@@ -366,14 +385,14 @@ def attention_body(dtype: torch.dtype, d: int, route: str) -> str:
     csrc/flash_attention.cu (bf16 B and C at width 64); "tma", its
     generic body over strided views (every other bf16 call: D1 and D2 at
     widths 16, 32, 64 and 128, B and C at 16, 32 and 128); "fma", the f32
-    body of flash_attention_bhtd.cu (D1 and D2 on f32 inputs). Raises for
-    what no body takes."""
+    body of flash_attention_bhtd.cu (every route on f32 inputs, at every
+    width). Raises for what no body takes."""
     if route not in ("B", "C", "D1", "D2"):
         raise ValueError(f"unknown attention route {route!r}")
     if d not in HEAD_WIDTHS:
         raise ValueError(f"kernel {route} takes head width {HEAD_WIDTHS}, "
                          f"got {d}")
-    if dtype == torch.float32 and route in ("D1", "D2"):
+    if dtype == torch.float32:
         return "fma"
     if dtype != torch.bfloat16:
         raise ValueError(f"kernel {route} does not take {dtype}")
@@ -549,10 +568,11 @@ def _launch_tma(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
         name)
 
 
-def _launch_d_body(route, q, k, v, out, bias_vec, bias_full, mask, causal,
-                   scale):
-    """Kernel D1 or D2 (``route``) into ``out``: bf16 q, k, v on the
-    wgmma + TMA body, f32 on flash_attention_bhtd.cu's FMA body."""
+def _launch_body(route, q, k, v, out, bias_vec, bias_full, mask, causal,
+                 scale):
+    """Kernel ``route`` (B, C, D1 or D2) on strided views into ``out``:
+    bf16 q, k, v on the wgmma + TMA body, f32 on flash_attention_bhtd.cu's
+    FMA body."""
     if attention_body(q.dtype, q.shape[-1], route) == "tma":
         _launch_tma(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
                     f"tt_flash_tma ({route})")
@@ -564,15 +584,15 @@ def _launch_d_body(route, q, k, v, out, bias_vec, bias_full, mask, causal,
 def _grouped_flash(q, k, v, out, bias_vec, bias_full, mask, causal, scale):
     """Kernel D1 (the grouped band-bias body: non-causal, Tq == Tkv, a
     Toeplitz bias) into ``out`` (q's dtype)."""
-    _launch_d_body("D1", q, k, v, out, bias_vec, bias_full, mask, causal,
-                   scale)
+    _launch_body("D1", q, k, v, out, bias_vec, bias_full, mask, causal,
+                 scale)
     _grouped_flash.launches += 1
 
 
 def _generic_flash(q, k, v, out, bias_vec, bias_full, mask, causal, scale):
     """Kernel D2 (the generic body) into the f32 ``out``."""
-    _launch_d_body("D2", q, k, v, out, bias_vec, bias_full, mask, causal,
-                   scale)
+    _launch_body("D2", q, k, v, out, bias_vec, bias_full, mask, causal,
+                 scale)
     _generic_flash.launches += 1
 
 
@@ -615,5 +635,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_packed", "flash_attention_causal_qkv",
-           "flash_attention_packed_plain",
+           "flash_attention_packed_plain", "launch_packed",
            "flash_attention_causal_qkv_plain", "relpos_bias_vector"]
