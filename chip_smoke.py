@@ -12,8 +12,9 @@ Phases (any failure exits nonzero before the result line):
    C causal qkv attention, D1/D2 strided attention, E fused LVC, F int8
    packed attention) against its plain PyTorch version at the shapes the
    main paths give it, with the stated tolerance (2e-2 relative for bf16
-   outputs, 1e-4 for f32 ones; F's within one bf16 rounding of its plain
-   version's f32 result, 1e-5 of max |out| in f32), and the time of both
+   outputs, 1e-4 for f32 ones, 1e-5 of max |out| for the split-TF32 f32
+   attention body; F's within one bf16 rounding of its plain version's
+   f32 result, 1e-5 of max |out| in f32), and the time of both
    (CUDA
    events, after warm-up); D1 also against kernel B on one qkv, and B
    and C at head width 128 (B there timed with its plain version, SDPA
@@ -25,17 +26,26 @@ Phases (any failure exits nonzero before the result line):
    materialized bias, Tq 256 x Tkv 1000 with the formula bias and causal
    with it at (2, 16, 1000, 64); timed against plain, SDPA and the bound)
    and again at head widths 16, 32 and 128; B and C at head width 16;
-   the f32 FMA body (D2 causal and D1, 1e-4, timed against SDPA in f32);
+   the f32 attention body (flash_attention_bhtd.cu, split TF32 on the
+   tensor cores; each case at 1e-5 of max |out|, timed against its plain
+   version, SDPA in f32 and its bound, with the f32 FMA bound beside it):
+   D2 causal at (8, 16, 535, 64) and D1 at (2, 32, 2176, 32) on views of
+   a packed qkv, every other D2 mode at (2, 16, 1000, 64), D1 and D2 at
+   head widths 16, 32 and 128, a batch row with no valid key (the mean
+   of V) and 8192 keys;
    E per hop at L = 2208 and at a 32-frame chunk (timed), at a ragged L
    = 2186 and on two batch rows of stacked kernels; B and C on an f32 qkv
-   (the FMA body, 1e-4, timed against SDPA in f32); kernel F, the
+   (the split-TF32 body, the same checks: the denoiser's and the latent
+   pass's shapes, head widths 16, 32 and 128, a row with no valid key);
+   kernel F, the
    int8-score packed attention, at the A/B's (2, 2176) x 16 x 64 (all
    keys valid and a ragged row; timed beside its plain version, kernel B
    on the same qkv and its bound) and at head widths 32 and 128; then the A/B script scripts/torch_ubench_attn_int8_ab.py
    in a fresh process, whose launch counts of F and B must equal the
    calls it made (F's launches in the result line are that run's);
-4. end to end at full production width (random weights, bf16 + int8,
-   stand-in tokens), eight requests, each with the launch counts set to 0
+4. end to end at full production width (random weights, bf16 + int8
+   unless named, stand-in tokens), nine requests, each with the launch
+   counts set to 0
    before it and read after it: request 1 through the CLI at
    --batch-size 1 must launch kernels A and B, request 2 at --batch-size
    8 must also launch kernel C (the latent pass); request 3, synthesize()
@@ -64,15 +74,20 @@ Phases (any failure exits nonzero before the result line):
    (b) tp (1, 2), cut to 48 decode and 20 denoising steps (full widths):
    a prefill + decode_step and a denoiser eval within 2e-2 of one rank's,
    and a 2-row batch with finite audio of the vocoder's length that
-   launches B and not A;
+   launches B and not A; request 9, the CLI on its default f32 plane (no
+   --bf16, no --int8-weights) at request 1's settings, must launch kernel
+   B on the split-TF32 body 1,044 times (REQUEST_B_LAUNCHES), beside the
+   same request with --no-flash (no kernel) and one f32 denoiser eval
+   with flash on and off (1e-4 of max |out|, both timed);
 5. small-input agreement: the tiny f32 parity plane on the card against
    the same run on the CPU (same tokens, mel and audio within tolerance),
    on the default configs and on the fallback + fused-LVC configs; then
    synthesize_batch (3 ragged rows) and stream_synthesize with the
    random draws of both runs from one numpy source.
 
-The line before the last is ``{"kernels": [...]}``, preceded by the
-card's name and power limit; the last line is
+The line before the last is ``{"kernels": [...]}`` (A-F, and "Bf":
+kernel B on an f32 qkv, the split-TF32 body, counted in request 9),
+preceded by the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. ``--profile`` instead profiles a
 decode step and a diffusion step after phase 3 (device time by kernel,
 idle share; traces under ``chiprun_out/``) and stops without a result
@@ -142,6 +157,7 @@ def rel_err(torch, got, want) -> tuple:
 # the MUFU's exp rate: 132 SMs x 16 exp2 a clock x 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 INT8_OPS = 1979e12
 MUFU_EXPS = 132 * 16 * 1.98e9
@@ -223,8 +239,16 @@ D2_CASES = (("causal", 8, 16, 535, 535), ("buckets", 2, 16, 1000, 1000),
             ("unequal", 2, 16, 256, 1000),
             ("causal_formula", 2, 16, 1000, 1000))
 D2_WIDTHS = (16, 32, 128)  # every mode again at 4 heads of these widths
-# f32 inputs on flash_attention_bhtd.cu's FMA body: (route, b, heads, T, D)
+# f32 inputs on flash_attention_bhtd.cu's split-TF32 body: (route, b,
+# heads, T, D) on views of a packed qkv; then every D2_CASES mode but the
+# first in f32, every route at head widths F32_WIDTHS (1024 / d heads: B,
+# D1 and D2 at (2, 1000), C at C_SHAPE's (8, 535)), a row with no valid
+# key, and F32_LONG's (b, heads, Tq, Tkv) at width 64, past what a
+# whole-Tkv window in shared memory could hold
 FMA_CASES = (("D2", 8, 16, 535, 64), ("D1", 2, 32, 2176, 32))
+F32_WIDTHS = (16, 32, 128)
+F32_LONG = (2, 16, 256, 8192)
+F32_TOL = 1e-5  # the split-TF32 body against its plain version
 # E: (L, batch rows) at each hop: 500 latents' 2208 bucket, a stream
 # chunk, the ragged 2186 frames, then two batch rows
 E_CASES = ((2208, 1), (32, 1), (2186, 1), (2208, 2), (32, 2))
@@ -248,8 +272,8 @@ def views(qkv, h, d):
     return tuple(x[:, :, :, p].transpose(1, 2) for p in range(3))
 
 
-def d2_inputs(torch, g, mode, b, h, tq, tkv, d=64):
-    """q (B, H, Tq, D), k and v (B, H, Tkv, D) in bf16 and
+def d2_inputs(torch, g, mode, b, h, tq, tkv, d=64, dtype=None):
+    """q (B, H, Tq, D), k and v (B, H, Tkv, D) in bf16 (or ``dtype``) and
     flash_attention's keywords for one D2 case: "causal" (the latent
     pass's key mask: two padded text slots), "buckets" (bucket ids and a
     table), "materialized" (an (H, Tq, Tkv) f32 bias), "unequal" (the
@@ -258,10 +282,10 @@ def d2_inputs(torch, g, mode, b, h, tq, tkv, d=64):
     from tortoise_tpu_torch.ops.relpos import relative_position_buckets
 
     dev = torch.device("cuda")
-    q = torch.randn((b, h, tq, d), generator=g, device=dev).to(
-        torch.bfloat16)
-    k, v = (torch.randn((b, h, tkv, d), generator=g, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
+    dtype = torch.bfloat16 if dtype is None else dtype
+    q = torch.randn((b, h, tq, d), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, h, tkv, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
     table = torch.randn((32, h), generator=g, device=dev) * 0.3
     if mode == "causal":
         valid = torch.ones((b, tkv), dtype=torch.bool, device=dev)
@@ -888,16 +912,85 @@ def check_kernel_d2(torch, results):
     results["D2"] = dict(max_abs_err=worst, **main)
 
 
-def check_fma_body(torch):
-    """flash_attention_bhtd.cu's FMA body (D1 and D2 on f32 inputs): D2
-    causal with the latent pass's key mask at (8, 16, 535, 64) and D1 on
-    f32 views of a packed qkv at (2, 32, 2176, 32) with the formula bias,
-    each held against its plain version at 1e-4 and timed (kernel, plain,
-    SDPA on the same f32 operands, the f32 FMA bound)."""
+def f32_bound(n_bytes, d, pairs) -> dict:
+    """The split-TF32 body's bound: three TF32 products a product (3 x 4D
+    FLOPs a pair) at 495 TFLOP/s, the exps and the bytes; and, beside it
+    as ``fma_bound_ms``, the same work as f32 FMAs at 67 TFLOP/s."""
+    tf = bound(n_bytes, flops=12.0 * d * pairs, flop_rate=TF32_FLOPS,
+               exps=pairs)
+    fma = bound(n_bytes, flops=4.0 * d * pairs, flop_rate=F32_FLOPS,
+                exps=pairs)
+    return dict(tf, fma_bound_ms=fma["bound_ms"])
+
+
+def _f32_case(torch, K, label, call, plain, qkv_views, add, inputs, pairs,
+              counter, mean=None) -> dict:
+    """One f32 call of the split-TF32 body: one launch of the route's
+    ``counter`` and of the body, an f32 output held at F32_TOL of max
+    |out| against the plain version (and ``mean``, the mean of V, where
+    given), timed against the plain version, SDPA in f32 on the same
+    views (``add``: bias, mask and causal mask as one float mask) and the
+    bound of ``inputs`` + the output. Returns the row's numbers."""
+    before = (counter.launches, K._launch_d.launches)
+    got = call()
+    if (counter.launches, K._launch_d.launches) != (
+            before[0] + 1, before[1] + 1) or got.dtype != torch.float32:
+        fail(f"{label} was not one f32 launch of its kernel on the "
+             f"split-TF32 body")
+    want = plain()
+    torch.cuda.synchronize()
+    err = _check(torch, label, got, want, F32_TOL, 0.0)
+    if mean is not None:
+        _check(torch, f"{label}, its fully masked row against the mean of V",
+               mean[0](got), mean[1], F32_TOL, 0.0)
+    n_bytes = nbytes(inputs, got)
+    del got, want
+    ms = cuda_ms(torch, call)
+    plain_ms = cuda_ms(torch, plain, iters=3)
+    lib_ms = sdpa_ms(torch, *qkv_views, add, label)
+    bd = f32_bound(n_bytes, qkv_views[0].shape[-1], pairs)
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA "
+          f"(f32) {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}), f32 FMA bound {bd['fma_bound_ms']:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bd["bound_ms"],
+                bound_by=bd["bound_by"])
+
+
+def _ragged(torch, b, t, cut=63):
+    """A (b, t) key mask with the last row's keys cut ``cut`` short."""
+    lens = torch.tensor([t] * (b - 1) + [t - cut], device="cuda")
+    return torch.arange(t, device="cuda")[None, :] < lens[:, None]
+
+
+def check_f32_body(torch):
+    """flash_attention_bhtd.cu's split-TF32 body on D1 and D2's f32
+    calls, each held at F32_TOL of max |out| against its plain version
+    and timed (kernel, plain, SDPA in f32, the bound with the f32 FMA
+    bound beside it; ``_f32_case``): FMA_CASES (D2 causal with the latent
+    pass's key mask at (8, 16, 535, 64) and D1 at (2, 32, 2176, 32) with
+    the formula bias, on views of a packed qkv); every other D2_CASES
+    mode at (2, 16, 1000, 64) in f32; D1 and D2 (causal with the formula
+    bias) at each of F32_WIDTHS; D2 with a materialized bias and a batch
+    row with no valid key (the mean of V); and D2 at F32_LONG's 8192
+    keys with the formula bias and a ragged row."""
     from tortoise_tpu_torch.ops.cuda import flash_attention as K
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(8)
+
+    def d_case(label, q, k, v, kw, inputs, mean=None):
+        add, vec, full = attention_add(torch, K, q, k, kw)
+        tq, tkv = q.shape[2], k.shape[2]
+        fn = K._grouped_flash if (kw.get("bias_formula") and not
+                                  kw["causal"] and tq == tkv) \
+            else K._generic_flash
+        _f32_case(torch, K, label, lambda: K.flash_attention(q, k, v, **kw),
+                  lambda: K.flash_attention_plain(q, k, v, **kw), (q, k, v),
+                  add, (inputs, kw["kv_valid"], vec, full),
+                  attention_pairs(q.shape[0], q.shape[1], tq, tkv,
+                                  kw["causal"]), fn, mean)
+
     for route, b, h, t, d in FMA_CASES:
         qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev)
         q, k, v = views(qkv, h, d)
@@ -910,28 +1003,44 @@ def check_fma_body(torch):
                       bias_table=torch.randn((32, h), generator=g,
                                              device=dev) * 0.3,
                       bias_formula=True)
-        label = f"{route} f32 FMA body ({b}, {h}, {t}, {d})"
-        fn = K._generic_flash if route == "D2" else K._grouped_flash
-        before = fn.launches
-        got = K.flash_attention(q, k, v, **kw)
-        if fn.launches != before + 1 or got.dtype != torch.float32:
-            fail(f"{label} was not one f32 launch of {route}")
-        want = K.flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        _check(torch, label, got, want, 1e-4, 0.0)
-        ms = cuda_ms(torch, lambda: K.flash_attention(q, k, v, **kw),
-                     iters=3)
-        plain_ms = cuda_ms(torch, lambda: K.flash_attention_plain(
-            q, k, v, **kw), iters=3)
-        add, vec, _ = attention_add(torch, K, q, k, kw)
-        lib_ms = sdpa_ms(torch, q, k, v, add, label)
-        pairs = attention_pairs(b, h, t, t, kw["causal"])
-        fma = bound(nbytes(qkv, kw["kv_valid"], vec, got),
-                    flops=4.0 * d * pairs, flop_rate=F32_FLOPS, exps=pairs)
-        print(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"SDPA (f32) {lib_ms:.3f} ms, f32 bound {fma['bound_ms']:.4f} "
-              f"ms ({fma['bound_by']})")
-        del qkv, q, k, v, got, want, add
+        d_case(f"{route} f32 ({b}, {h}, {t}, {d})", q, k, v, kw, qkv)
+        del qkv, q, k, v
+    for mode, b, h, tq, tkv in D2_CASES[1:]:
+        q, k, v, kw = d2_inputs(torch, g, mode, b, h, tq, tkv,
+                                dtype=torch.float32)
+        d_case(f"D2 f32 {mode} ({b}, {h}, {tq}, {tkv}, 64)", q, k, v, kw,
+               (q, k, v))
+        del q, k, v, kw
+    for d in F32_WIDTHS:
+        h, t = 1024 // d, 1000
+        qkv = torch.randn((2, t, 3 * h * d), generator=g, device=dev)
+        q, k, v = views(qkv, h, d)
+        kw = dict(kv_valid=_ragged(torch, 2, t), causal=False,
+                  bias_table=torch.randn((32, h), generator=g,
+                                         device=dev) * 0.3,
+                  bias_formula=True)
+        d_case(f"D1 f32 (2, {h}, {t}, {d})", q, k, v, kw, qkv)
+        del qkv, q, k, v
+        q, k, v, kw = d2_inputs(torch, g, "causal_formula", 2, h, t, t, d,
+                                dtype=torch.float32)
+        d_case(f"D2 f32 causal_formula (2, {h}, {t}, {t}, {d})", q, k, v,
+               kw, (q, k, v))
+        del q, k, v, kw
+    q, k, v, kw = d2_inputs(torch, g, "materialized", 2, 16, 1000, 1000,
+                            dtype=torch.float32)
+    kw["kv_valid"] = kw["kv_valid"].clone()
+    kw["kv_valid"][1] = False  # batch row 1: no valid key
+    d_case("D2 f32 materialized, row 1 with no valid key (2, 16, 1000, "
+           "1000, 64)", q, k, v, kw, (q, k, v),
+           mean=(lambda got: got[1], v[1].mean(dim=1, keepdim=True)
+                 .expand(16, 1000, 64)))
+    del q, k, v, kw
+    b, h, tq, tkv = F32_LONG
+    q, k, v, kw = d2_inputs(torch, g, "unequal", b, h, tq, tkv,
+                            dtype=torch.float32)
+    d_case(f"D2 f32 long keys, formula bias ({b}, {h}, {tq}, {tkv}, 64)",
+           q, k, v, kw, (q, k, v))
+    del q, k, v, kw
 
 
 def check_wide_heads(torch):
@@ -1034,66 +1143,69 @@ def check_kernel_e(torch, results):
                         bound_by=max(bound_by, key=bound_by.get), **main)
 
 
-def check_f32_packed_and_causal(torch):
-    """Kernels B and C on an f32 qkv, as the Pallas kernels take it: the
-    FMA body of flash_attention_bhtd.cu on strided views, counted as B or
-    C. B at the denoiser's (2, 2176) x 16 x 64 with the rel-pos bias, C
-    at the latent pass's (8, 535) x 16 x 64 with its key mask; each held
-    against its plain version at 1e-4 and timed (kernel, plain, SDPA on
-    the same f32 views, the f32 FMA bound)."""
+def check_f32_packed_and_causal(torch, results):
+    """Kernels B and C on an f32 qkv, as the Pallas kernels take it (the
+    default CLI's plane, request 9): the split-TF32 body of
+    flash_attention_bhtd.cu on strided views, counted as B or C and as
+    the body, each held at F32_TOL of max |out| and timed (``_f32_case``).
+    B at the denoiser's (2, 2176) x 16 x 64 with the rel-pos bias (the
+    result line's "Bf" row), C at the latent pass's (8, 535) x 16 x 64
+    with its key mask; both at each of F32_WIDTHS (1024 / d heads; B at
+    (2, 1000) with a ragged row); B with a batch row that has no valid
+    key (the mean of V)."""
     from tortoise_tpu_torch.ops.cuda import flash_attention as K
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
-    counted = (K.flash_attention_packed, K.flash_attention_causal_qkv,
-               K._grouped_flash, K._generic_flash)
+
+    def b_case(label, b, t, h, d, valid, mean=False):
+        qkv = torch.randn((b, t, 3 * h * d), generator=g, device=dev)
+        vec = K.relpos_bias_vector(
+            torch.randn((32, h), generator=g, device=dev) * 0.3, t)
+        add = K._toeplitz_full(vec, t, t)[None]
+        if valid is not None:
+            add = add + K._additive_mask(valid)[:, None, None, :]
+        q, k, v = views(qkv, h, d)
+        row = None
+        if mean:  # row 1's output is the mean of its values, every head
+            row = (lambda got: got[1], v[1].mean(dim=1).reshape(1, h * d)
+                   .expand(t, h * d))
+        return _f32_case(
+            torch, K, label,
+            lambda: K.flash_attention_packed(qkv, h, valid, bias_vec=vec),
+            lambda: K.flash_attention_packed_plain(qkv, h, valid, vec),
+            (q, k, v), add, (qkv, vec, valid),
+            attention_pairs(b, h, t, t, False), K.flash_attention_packed,
+            row)
+
+    def c_case(label, b, s, h, d):
+        qkv = torch.randn((b, s, 3 * h * d), generator=g, device=dev)
+        valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+        valid[:, 1 + 30:1 + 32] = False
+        q, k, v = K._split_part_major(qkv, h)
+        add = K._causal_add(s, s, dev)[None, None] + \
+            K._additive_mask(valid)[:, None, None, :]
+        return _f32_case(
+            torch, K, label,
+            lambda: K.flash_attention_causal_qkv(qkv, h, valid),
+            lambda: K.flash_attention_causal_qkv_plain(qkv, h, valid),
+            (q, k, v), add, (qkv, valid),
+            attention_pairs(b, h, s, s, True),
+            K.flash_attention_causal_qkv)
+
     (b, t, _, h), (bc, hc, s) = B_CASES[0], C_SHAPE
-    for route, b, h, t in (("B", b, h, t), ("C", bc, hc, s)):
-        qkv = torch.randn((b, t, 3 * h * 64), generator=g, device=dev)
-        if route == "B":
-            vec = K.relpos_bias_vector(
-                torch.randn((32, h), generator=g, device=dev) * 0.3, t)
-            valid = None
-
-            def call():
-                return K.flash_attention_packed(qkv, h, bias_vec=vec)
-
-            def plain():
-                return K.flash_attention_packed_plain(qkv, h, None, vec)
-            q, k, v = views(qkv, h, 64)
-            add = K._toeplitz_full(vec, t, t)[None]
-        else:
-            valid = torch.ones((b, t), dtype=torch.bool, device=dev)
-            valid[:, 1 + 30:1 + 32] = False
-            vec = None
-
-            def call():
-                return K.flash_attention_causal_qkv(qkv, h, valid)
-
-            def plain():
-                return K.flash_attention_causal_qkv_plain(qkv, h, valid)
-            q, k, v = K._split_part_major(qkv, h)
-            add = K._causal_add(t, t, dev)[None, None] + \
-                K._additive_mask(valid)[:, None, None, :]
-        label = f"{route} f32 FMA body ({b}, {t}) x {h} heads of 64"
-        before = [fn.launches for fn in counted]
-        got = call()
-        want = [n + (i == "BC".index(route)) for i, n in enumerate(before)]
-        if [fn.launches for fn in counted] != want or \
-                got.dtype != torch.float32:
-            fail(f"{label} was not one f32 launch of {route}")
-        torch.cuda.synchronize()
-        _check(torch, label, got, plain(), 1e-4, 0.0)
-        ms = cuda_ms(torch, call, iters=3)
-        plain_ms = cuda_ms(torch, plain, iters=3)
-        lib_ms = sdpa_ms(torch, q, k, v, add, label)
-        pairs = attention_pairs(b, h, t, t, route == "C")
-        fma = bound(nbytes(qkv, valid, vec, got), flops=4.0 * 64 * pairs,
-                    flop_rate=F32_FLOPS, exps=pairs)
-        print(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"SDPA (f32) {lib_ms:.3f} ms, f32 bound {fma['bound_ms']:.4f} "
-              f"ms ({fma['bound_by']})")
-        del qkv, q, k, v, got, add
+    results["Bf"] = b_case(f"B f32 ({b}, {t}) x {h} heads of 64", b, t, h,
+                           64, None)
+    c_case(f"C f32 ({bc}, {s}) x {hc} heads of 64", bc, s, hc, 64)
+    for d in F32_WIDTHS:
+        b_case(f"B f32 (2, 1000) x {1024 // d} heads of {d}", 2, 1000,
+               1024 // d, d, _ragged(torch, 2, 1000))
+        c_case(f"C f32 ({bc}, {s}) x {1024 // d} heads of {d}", bc, s,
+               1024 // d, d)
+    valid = torch.ones((2, 1000), dtype=torch.bool, device=dev)
+    valid[1] = False
+    b_case("B f32 (2, 1000) x 16 heads of 64, row 1 with no valid key", 2,
+           1000, 16, 64, valid, mean=True)
 
 
 def _check_f(torch, K, name, qkv, h, valid, table, got, worst):
@@ -1211,14 +1323,17 @@ def run_int8_ab(smi) -> dict:
     return ab
 
 
-def run_request(torch, batch_size: int, out_dir: str, smi: str):
-    """The CLI at full width (requests 1 and 2); returns its
-    SynthesisResult."""
+def run_request(torch, batch_size: int, out_dir: str, smi: str,
+                plane=("--bf16", "--int8-weights"), label=None):
+    """The CLI at full width with the ``plane`` flags (requests 1 and 2 on
+    the production plane, request 9 on the default f32 plane); returns
+    its SynthesisResult."""
     from tortoise_tpu_torch import cli
     from tortoise_tpu_torch.pipeline.vocoder_stage import audio_length
 
+    label = label or f"b={batch_size}"
     out = os.path.join(out_dir, f"request_b{batch_size}.wav")
-    argv = ["--random-weights", "--bf16", "--int8-weights", "--seed", "0",
+    argv = ["--random-weights", *plane, "--seed", "0",
             "--no-progress", "--batch-size", str(batch_size), "--tokens",
             ",".join(map(str, STANDIN_TOKENS)), "--output", out]
     t0 = time.monotonic()
@@ -1229,15 +1344,15 @@ def run_request(torch, batch_size: int, out_dir: str, smi: str):
 
     audio, mel = np.asarray(res.audio), np.asarray(res.mel)
     if not (np.isfinite(audio).all() and np.isfinite(mel).all()):
-        fail(f"request b={batch_size}: non-finite audio or mel")
+        fail(f"request {label}: non-finite audio or mel")
     want = audio_length(mel.shape[-1])
     if mel.shape[0] != 100 or audio.shape != (want,):
-        fail(f"request b={batch_size}: mel {mel.shape}, audio "
+        fail(f"request {label}: mel {mel.shape}, audio "
              f"{audio.shape}, want ({want},)")
     dur = len(audio) / res.sample_rate
     t = res.timings
     st = {k: round(v, 3) for k, v in t.items()}
-    print(f"  request b={batch_size}: {len(res.sequences)} candidates, "
+    print(f"  request {label}: {len(res.sequences)} candidates, "
           f"mel {mel.shape}, audio {len(audio)} samples ({dur:.2f} s); "
           f"stage walls {st}; call wall {wall:.2f} s, RTF "
           f"{sum(t[k] for k in cli.STAGES) / dur:.3f}, AR "
@@ -1246,6 +1361,69 @@ def run_request(torch, batch_size: int, out_dir: str, smi: str):
           f"{t['diffusion_loop_s'] / t['diffusion_steps'] * 1e3:.3f} "
           f"ms/CFG-step [{smi}]")
     return res
+
+
+# kernel B's launches in one request at B = 1: the code conditioner's 4
+# attention blocks once, then 13 attention layers (3 integrator + 10 main)
+# in each of 80 denoising steps
+REQUEST_B_LAUNCHES = 4 + 13 * 80
+
+
+def run_request_9(torch, models, out_dir, smi, reset_launch_counts,
+                  launch_counts) -> dict:
+    """The CLI on its default plane (no --bf16, no --int8-weights) at
+    request 1's tokens, seed and batch size: the f32 parity plane, where
+    the denoiser runs kernel B on the split-TF32 body, as the JAX CLI
+    runs its Pallas kernel B on an f32 qkv. It must launch B on that body
+    REQUEST_B_LAUNCHES times; then the same request with --no-flash (no
+    kernel) beside it; then one full-width f32 denoiser eval (one CFG
+    step, B = 2, T = 2176, ``models``' diffusion weights) with use_flash
+    on and off on the same inputs, held within 1e-4 of max |out| and both
+    timed. Returns request 9's launch counts."""
+    import dataclasses
+
+    from tortoise_tpu_torch.models import diffusion as dm
+    from tortoise_tpu_torch.ops.relpos import relative_position_buckets
+    from tortoise_tpu_torch.pipeline import diffusion_stage as dst
+
+    reset_launch_counts()
+    run_request(torch, 1, out_dir, smi, plane=(), label="9 (f32 plane)")
+    counts = launch_counts()
+    for key in ("flash_attention_packed", "flash_attention_f32"):
+        if counts[key] != REQUEST_B_LAUNCHES:
+            fail(f"request 9 launched {key} {counts[key]} times, want "
+                 f"{REQUEST_B_LAUNCHES}: {counts}")
+    reset_launch_counts()
+    run_request(torch, 1, out_dir, smi, plane=("--no-flash",),
+                label="9 with --no-flash (f32 plane, plain attention)")
+    off = launch_counts()
+    if any(off.values()):
+        fail(f"request 9 with --no-flash launched a kernel: {off}")
+    dcfg = models.diffusion_cfg
+    params = dst._prepare_params(models.diffusion_params, False, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t = B_CASES[0][1]
+    x = torch.randn((2, dcfg.n_mel, t), generator=g, device="cuda")
+    code = 0.5 * torch.randn((2, dcfg.d_model, t), generator=g,
+                             device="cuda")
+    buckets = torch.as_tensor(relative_position_buckets(
+        t, dcfg.rel_pos_buckets, dcfg.rel_pos_max_distance), device="cuda")
+    out, ms = {}, {}
+    with torch.inference_mode():
+        for flash in (True, False):
+            cfg = dataclasses.replace(dcfg, use_flash=flash)
+            ids = None if flash else buckets
+
+            def ev():
+                return dm.denoise(params, cfg, x, code, 100, ids)
+            out[flash] = ev()
+            ms[flash] = cuda_ms(torch, ev, iters=3, warmup=1)
+    _check(torch, f"request 9's denoiser eval (2, {t}) f32, flash against "
+           f"plain attention", out[True], out[False], 1e-4, 0.0)
+    print(f"  one f32 denoiser eval (CFG step, B = 2, T = {t}): flash "
+          f"{ms[True]:.3f} ms, plain attention {ms[False]:.3f} ms [{smi}]")
+    del params, x, code, out
+    return counts
 
 
 # request 3's configuration: the diffusion fallback (32 heads of 32, so
@@ -2401,9 +2579,9 @@ def main(argv=None) -> int:
     check_kernel_d1(torch, results)
     check_kernel_d2(torch, results)
     check_wide_heads(torch)
-    check_fma_body(torch)
+    check_f32_body(torch)
     check_kernel_e(torch, results)
-    check_f32_packed_and_causal(torch)
+    check_f32_packed_and_causal(torch, results)
     check_kernel_f(torch, results)
     ab = run_int8_ab(smi)
     if args.profile:
@@ -2434,13 +2612,19 @@ def main(argv=None) -> int:
         "F": ("flash_packed_i8", "flash_packed_i8",
               "tortoise_tpu_torch/csrc/flash_attention_int8.cu",
               "scripts/ubench_attn_int8_ab.py:100"),
+        # kernel B on an f32 qkv (request 9): the split-TF32 body, counted
+        # by the body's own launcher as well as by B
+        "Bf": ("flash_attention_packed (f32 qkv: split-TF32 body)",
+               "flash_attention_f32",
+               "tortoise_tpu_torch/csrc/flash_attention_bhtd.cu",
+               pallas + "flash_attention.py:269"),
     }
     # each request is one path: counts set to 0 just before it, read just
     # after. Kernels every request of its path must launch, and kernels
     # it must not launch:
     needs = {1: ("A", "B"), 2: ("A", "B", "C"), 3: ("A", "D1", "E"),
              4: ("A", "B", "C"), 5: ("A", "B", "E"), 6: ("A", "B"),
-             7: ("A", "B", "C"), 8: ("A", "B")}
+             7: ("A", "B", "C"), 8: ("A", "B"), 9: ("B", "Bf")}
     print("[4/5] end to end at full production width (random weights, "
           "bf16 + int8)", flush=True)
     per_request = {}
@@ -2476,6 +2660,9 @@ def main(argv=None) -> int:
         per_request[8] = run_request_8(torch, models, smi, req[7])
         print(f"  requests 7-8 (mesh) wall {time.monotonic() - t_mesh:.1f} s "
               f"[{smi}]")
+        # the CLI on its default f32 plane: kernel B on the split-TF32 body
+        per_request[9] = run_request_9(torch, models, out_dir, smi,
+                                       reset_launch_counts, launch_counts)
         del models
     for r, c in per_request.items():
         print(f"  launches, request {r}: {c}")

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Device and host times of the port's kernels B, C, D1, D2, E and F on
-one NVIDIA card, for the tortoise_tpu_torch of the checkout at --root,
-at the phase-3 shapes and inputs of this checkout's chip_smoke.py (its
-B_CASES, C_SHAPE, D1_CASES, WIDE, D2_CASES, E_CASES, F_SHAPE and input
-builders; B and C on an f32 qkv and F only where the checkout has
-them); with --request3 N, also N runs of chip_smoke's request 3
+"""Device and host times of the port's kernels A, B, C, D1, D2, E and F
+on one NVIDIA card, for the tortoise_tpu_torch of the checkout at
+--root, at the phase-3 shapes and inputs of this checkout's
+chip_smoke.py (its kernel-A weights and inputs at B = 1 and 16, B_CASES,
+C_SHAPE, D1_CASES, WIDE, D2_CASES, E_CASES, F_SHAPE and input builders;
+f32 inputs: B and C, D2 causal and D1 at FMA_CASES, and every other
+D2_CASES mode, where the checkout's kernels take them; F only where the
+checkout has it); with --request3 N, also N runs of chip_smoke's request 3
 (synthesize() on the diffusion fallback and the fused LVC: kernels A, D1
 and E). Two checkouts compare inside one call, in turns:
 
@@ -183,6 +185,17 @@ def main() -> int:
     def table(h):
         return torch.randn((32, h), generator=g, device="cuda") * 0.3
 
+    from tortoise_tpu_torch.ops.cuda import decode_trunk as DT
+
+    weights = smoke._kernel_a_weights(torch)
+    for b in (1, 16):
+        blocks, ck, cv, bias_row, xa, full = smoke._kernel_a_inputs(
+            torch, b, weights)
+        emit("A", [b], lambda: DT.fused_decode_trunk(
+            blocks, ck, cv, bias_row, xa, **full))
+        del blocks, ck, cv, bias_row, xa, full
+    del weights
+
     for b, t, h, d, _ in smoke.D1_CASES:
         q, k, v = smoke.views(smoke.bf16_qkv(torch, g, b, t, h, d), h, d)
         tab = table(h)
@@ -216,7 +229,8 @@ def main() -> int:
         emit(f"D2 {mode}", [b, h, tq, tkv, 64],
              lambda: FA.flash_attention(q, k, v, **kw))
         del q, k, v, kw
-    # f32 B and C (the FMA body) and kernel F, where this checkout has them
+    # f32 B, C, D1 and D2 (the f32 body) and kernel F, where this checkout
+    # has them
     if _takes_f32(FA):
         b, t, _, h = smoke.B_CASES[0]
         xf = torch.randn((b, t, 3 * h * 64), generator=g, device="cuda")
@@ -230,6 +244,24 @@ def main() -> int:
         emit("C f32", [b, h, s, 64],
              lambda: FA.flash_attention_causal_qkv(xf, h, valid))
         del xf
+    for route, b, h, t, d in smoke.FMA_CASES:
+        xf = torch.randn((b, t, 3 * h * d), generator=g, device="cuda")
+        q, k, v = smoke.views(xf, h, d)
+        if route == "D2":
+            valid = torch.ones((b, t), dtype=torch.bool, device="cuda")
+            valid[:, 31:33] = False
+            kw = dict(kv_valid=valid, causal=True)
+        else:
+            kw = dict(bias_table=table(h), bias_formula=True)
+        emit(f"{route} f32", [b, h, t, d],
+             lambda: FA.flash_attention(q, k, v, **kw))
+        del xf, q, k, v
+    for mode, b, h, tq, tkv in smoke.D2_CASES[1:]:
+        q, k, v, kw = smoke.d2_inputs(torch, g, mode, b, h, tq, tkv,
+                                      dtype=torch.float32)
+        emit(f"D2 f32 {mode}", [b, h, tq, tkv, 64],
+             lambda: FA.flash_attention(q, k, v, **kw))
+        del q, k, v, kw
     try:
         from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as FI
     except ImportError:

@@ -5,8 +5,10 @@ file imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerance: 2e-2 of the reference's max magnitude (bf16 outputs, another
-summation order); 1e-4 for f32 inputs (the f32 body of B, C and D,
-kernel E); 1e-2 for kernel F (round(127 p) on either side of a tie);
+summation order); 1e-4 for f32 inputs (kernel E, and the older f32
+checks of B, C and D), 1e-5 for the split-TF32 body on every f32 route
+(``F32_TOL``: three TF32 products a product keep ~1e-6 of max |out|);
+1e-2 for kernel F (round(127 p) on either side of a tie);
 the in-kernel sampler must pick the plain sampler's token on the
 kernel's own logits.
 """
@@ -326,7 +328,7 @@ def test_tma_body_copies_a_view_that_breaks_the_16_byte_rule(cuda_device):
 def test_generic_kernel_d2_matches_plain_on_card(cuda_device, dtype, tol,
                                                  mode, d):
     """Kernel D2 in each of its modes at every head width: bf16 on the
-    wgmma + TMA body, f32 on the FMA body, each one launch of D2 with an
+    wgmma + TMA body, f32 on the split-TF32 body, each one launch of D2 with an
     f32 output. Tq != Tkv: 150 query rows over 203 keys with the formula
     bias and a ragged key mask (203 % 4 != 0, so a materialized bias is
     read from a padded copy); causal with the formula bias is D2 too
@@ -434,7 +436,7 @@ def test_packed_and_causal_kernels_take_head_width_16(cuda_device, t):
 def test_packed_and_causal_kernels_take_f32_on_card(cuda_device, kernel, b,
                                                     t):
     """Kernels B and C on an f32 qkv, as the Pallas kernels take it (the
-    JAX denoiser's f32 plane with use_flash): the FMA body on strided
+    JAX denoiser's f32 plane with use_flash): the split-TF32 body on strided
     views of the qkv, an f32 output, counted as B or C and not as D; at
     the denoiser's (2, 2176) and the latent pass's (8, 535) x 16 x 64."""
     h = 16
@@ -457,6 +459,168 @@ def test_packed_and_causal_kernels_take_f32_on_card(cuda_device, kernel, b,
     assert [fn.launches for fn in counted] == after
     assert got.dtype == torch.float32
     assert_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+
+
+F32_TOL = 1e-5  # the split-TF32 body against its plain version
+# f32 route cases: (route, mode); a mode names its bias ("bias" for B's
+# Toeplitz vector, "formula", "buckets", "materialized" or none), a key
+# mask ("masked"), "causal", and Tq != Tkv ("wide": 150 queries over 203
+# keys; "tall": 203 over 150)
+F32_CASES = [("B", "bias"), ("B", "bias_masked"), ("C", "plain"),
+             ("C", "masked"), ("D1", "formula"), ("D1", "formula_masked"),
+             ("D2", "none"), ("D2", "causal_masked"),
+             ("D2", "materialized_masked"), ("D2", "materialized_causal"),
+             ("D2", "buckets_masked"), ("D2", "buckets_causal"),
+             ("D2", "formula_causal_masked"), ("D2", "wide_formula_masked"),
+             ("D2", "wide_materialized_causal"), ("D2", "tall_masked"),
+             ("D2", "tall_causal_masked")]
+
+
+def _f32_route(route, mode, d, device, seed):
+    """One f32 call of ``route``: (the wrapper's output, the plain
+    version's, the wrapper function whose launch counter counts it)."""
+    from tortoise_tpu_torch.ops.relpos import relative_position_buckets
+
+    b, h, t = 2, 2, 150
+    rng = np.random.default_rng(seed)
+    valid = None
+    if "masked" in mode:
+        valid = np.ones((b, 203), bool)
+        valid[1, 150 - 19:] = False
+        valid[0, 5:9] = False
+    table = torch.tensor(rng.normal(0, 0.3, (32, h)).astype(np.float32)
+                         ).to(device)
+    if route in ("B", "C"):
+        qkv = torch.tensor(_qkv(b, t, h, d, seed)).to(device)
+        kv = None if valid is None else torch.tensor(valid[:, :t]).to(device)
+        if route == "B":
+            vec = TF.relpos_bias_vector(table, t)
+            return (TF.flash_attention_packed(qkv, h, kv, bias_vec=vec),
+                    TF.flash_attention_packed_plain(qkv, h, kv, vec),
+                    TF.flash_attention_packed)
+        return (TF.flash_attention_causal_qkv(qkv, h, kv),
+                TF.flash_attention_causal_qkv_plain(qkv, h, kv),
+                TF.flash_attention_causal_qkv)
+    tq, tkv = (150, 203) if "wide" in mode else \
+        (203, 150) if "tall" in mode else (t, t)
+    if route == "D1":  # views of a packed qkv, as the denoiser's fallback
+        x = torch.tensor(_qkv(b, t, h, d, seed)).to(device)
+        q, k, v = (x.view(b, t, h, 3, d)[:, :, :, p].transpose(1, 2)
+                   for p in range(3))
+    else:
+        q = torch.tensor(rng.normal(0, 1, (b, h, tq, d)).astype(
+            np.float32)).to(device)
+        k, v = (torch.tensor(rng.normal(0, 1, (b, h, tkv, d)).astype(
+            np.float32)).to(device) for _ in range(2))
+    kw = dict(causal="causal" in mode,
+              kv_valid=None if valid is None else torch.tensor(
+                  valid[:, :tkv]).to(device))
+    if "materialized" in mode:
+        kw["bias"] = torch.tensor(rng.normal(0, 1, (h, tq, tkv)).astype(
+            np.float32)).to(device)
+    elif "buckets" in mode:
+        kw.update(bias_buckets=torch.tensor(relative_position_buckets(tq),
+                                            device=device), bias_table=table)
+    elif "formula" in mode:
+        kw.update(bias_table=table, bias_formula=True)
+    fn = TF._grouped_flash if route == "D1" else TF._generic_flash
+    return (TF.flash_attention(q, k, v, **kw),
+            TF.flash_attention_plain(q, k, v, **kw), fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("route,mode", F32_CASES)
+def test_f32_body_matches_plain_on_card(cuda_device, route, mode, d):
+    """Every f32 route (B, C, D1, D2) at every head width, in each bias
+    mode, causal or not, with Tq != Tkv both ways: one launch of the
+    route's kernel, counted by the route and by the split-TF32 body
+    (``_launch_d``), an f32 output within 1e-5 of
+    max |out| of the plain version (true f32 matmuls)."""
+    counted = (TF.flash_attention_packed, TF.flash_attention_causal_qkv,
+               TF._grouped_flash, TF._generic_flash, TF._launch_d)
+    before = [fn.launches for fn in counted]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seed = 100 + d + 7 * F32_CASES.index((route, mode))
+    with torch.no_grad():
+        got, want, fn = _f32_route(route, mode, d, cuda_device, seed)
+    assert [c.launches for c in counted] == [
+        n + (c in (fn, TF._launch_d)) for c, n in zip(counted, before)]
+    assert got.dtype == torch.float32
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_f32_body_gives_the_mean_of_v_on_a_row_with_no_valid_key(
+        cuda_device, d):
+    """Batch row 1 has every key masked: every key scores -1e30 alike
+    (the mask absorbs the bias), so each query row there is the mean of
+    V: on D2 with a materialized bias, on kernel B, and, when causal, the
+    mean of the keys up to the row (row i still sees key 0)."""
+    b, h, t = 2, 2, 100
+    rng = np.random.default_rng(d)
+    q, k, v = (torch.tensor(rng.normal(0, 1, (b, h, t, d)).astype(
+        np.float32)).to(cuda_device) for _ in range(3))
+    valid = torch.ones((b, t), dtype=torch.bool, device=cuda_device)
+    valid[1] = False
+    table = torch.randn(32, h, device=cuda_device) * 0.3
+    got = TF.flash_attention(q, k, v, kv_valid=valid,
+                             bias=torch.randn(h, t, t, device=cuda_device))
+    mean = v[1].mean(dim=1, keepdim=True).expand(h, t, d)
+    assert_close(got[1].cpu().numpy(), mean.cpu().numpy(), F32_TOL)
+    got = TF.flash_attention(q, k, v, kv_valid=valid, causal=True)
+    prefix = v[1].cumsum(dim=1) / torch.arange(
+        1, t + 1, device=cuda_device)[:, None]
+    assert_close(got[1].cpu().numpy(), prefix.cpu().numpy(), F32_TOL)
+    qkv = torch.tensor(_qkv(b, t, h, d, d)).to(cuda_device)
+    got = TF.flash_attention_packed(qkv, h, valid, bias_table=table)
+    vb = qkv.view(b, t, h, 3, d)[1, :, :, 2]  # (t, h, d)
+    assert_close(got[1].cpu().numpy(),
+                 vb.mean(dim=0).reshape(1, h * d).expand(t, h * d)
+                 .cpu().numpy(), F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,tkv", [(64, 8192), (128, 9000), (16, 8192)])
+def test_f32_body_takes_a_long_key_sequence(cuda_device, d, tkv):
+    """Tkv long enough that a whole-window design would not fit in
+    shared memory (the Toeplitz window and the mask over every key):
+    the keys stream through in tiles, so the call runs and agrees with
+    the plain version, with the formula bias and a ragged key mask."""
+    b, h, tq = 2, 2, 256
+    rng = np.random.default_rng(tkv + d)
+    q = torch.tensor(rng.normal(0, 1, (b, h, tq, d)).astype(np.float32)
+                     ).to(cuda_device)
+    k, v = (torch.tensor(rng.normal(0, 1, (b, h, tkv, d)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    valid = torch.arange(tkv, device=cuda_device)[None, :] < torch.tensor(
+        [[tkv], [tkv - 333]], device=cuda_device)
+    kw = dict(kv_valid=valid, bias_table=torch.randn(
+        32, h, device=cuda_device) * 0.3, bias_formula=True)
+    before = TF._generic_flash.launches
+    got = TF.flash_attention(q, k, v, **kw)
+    assert TF._generic_flash.launches == before + 1
+    want = TF.flash_attention_plain(q, k, v, **kw)
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), F32_TOL)
+
+
+@pytest.mark.cuda
+def test_f32_body_takes_views_that_break_the_16_byte_rule(cuda_device):
+    """A q, k, v whose base or strides are not multiples of 16 bytes
+    (here a packed qkv offset by one float) runs with 4-byte copies."""
+    b, h, t, d = 2, 2, 130, 32
+    raw = torch.tensor(_qkv(b, t * 3 * h * d + 1, 1, 1, 3).reshape(-1)
+                       ).to(cuda_device)
+    qkv = raw[1:1 + b * t * 3 * h * d].view(b, t, 3 * h * d)
+    assert qkv.data_ptr() % 16
+    q, k, v = (qkv.view(b, t, h, 3, d)[:, :, :, p].transpose(1, 2)
+               for p in range(3))
+    kw = dict(bias_table=torch.randn(32, h, device=cuda_device) * 0.3,
+              bias_formula=True, causal=True)
+    got = TF.flash_attention(q, k, v, **kw)
+    want = TF.flash_attention_plain(q, k, v, **kw)
+    assert_close(got.cpu().numpy(), want.cpu().numpy(), F32_TOL)
 
 
 def _i8_inputs(b, t, h, d, n_valid, seed, device):

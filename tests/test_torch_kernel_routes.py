@@ -18,8 +18,9 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 128, "B", "tma"), (BF16, 16, "B", "tma"), (BF16, 64, "C", "qkv"),
     (BF16, 128, "C", "tma"), (BF16, 16, "C", "tma"), (BF16, 32, "D2", "tma"),
     (BF16, 64, "D2", "tma"), (BF16, 16, "D2", "tma"), (BF16, 128, "D2", "tma"),
-    (F32, 32, "D1", "fma"), (F32, 64, "D2", "fma"), (F32, 16, "D2", "fma"),
-    (F32, 64, "B", "fma"), (F32, 64, "C", "fma"),
+    (F32, 32, "D1", "tf32x3"), (F32, 64, "D2", "tf32x3"),
+    (F32, 16, "D2", "tf32x3"), (F32, 64, "B", "tf32x3"),
+    (F32, 64, "C", "tf32x3"),
 ])
 def test_attention_body_picks_the_body(dtype, d, route, want):
     assert TF.attention_body(dtype, d, route) == want
@@ -28,7 +29,7 @@ def test_attention_body_picks_the_body(dtype, d, route, want):
 def test_attention_body_has_one_bf16_design():
     """Every bf16 call runs on csrc/flash_attention.cu (the generic body,
     or the fused-qkv body for B and C at width 64), every f32 call of B,
-    C, D1 and D2 on the FMA body: no other body is named for any (dtype,
+    C, D1 and D2 on the split-TF32 body: no other body is named for any (dtype,
     head width, route) the wrappers accept."""
     taken = {}
     for dtype in (BF16, F32, torch.float16):
@@ -39,8 +40,8 @@ def test_attention_body_has_one_bf16_design():
                                                                route)
                 except ValueError:
                     pass
-    assert set(taken.values()) == {"tma", "qkv", "fma"}
-    assert {k for k, v in taken.items() if v == "fma"} == {
+    assert set(taken.values()) == {"tma", "qkv", "tf32x3"}
+    assert {k for k, v in taken.items() if v == "tf32x3"} == {
         (F32, d, r) for d in TF.HEAD_WIDTHS for r in ("B", "C", "D1", "D2")}
     assert {k for k, v in taken.items() if v == "qkv"} == {
         (BF16, 64, "B"), (BF16, 64, "C")}
@@ -324,3 +325,28 @@ def test_lvc_plan_fills_the_card_at_a_stream_chunk(hop):
     launch covers the card's SMs (it was 8 blocks)."""
     grid = TL.lvc_plan(1, 32, 32, 32, hop)["grid"]
     assert grid[0] * grid[1] * grid[2] >= 0.95 * TL.SM_COUNT
+
+
+def test_f32_body_variants_match_the_source():
+    """scripts/torch_f32_body_variants.py builds each variant of the f32
+    body by a text substitution: every one must match
+    csrc/flash_attention_bhtd.cu exactly once, or the script raises on
+    the card."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "torch_f32_body_variants",
+        root / "scripts" / "torch_f32_body_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = (root / "tortoise_tpu_torch" / "csrc" /
+           "flash_attention_bhtd.cu").read_text()
+    assert mod.VARIANTS["as built"] == []
+    for name, subs in mod.VARIANTS.items():
+        text = src
+        for old, new in subs:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert (text != src) == bool(subs), name

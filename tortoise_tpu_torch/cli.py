@@ -8,12 +8,14 @@
 the streaming path (``pipeline/streaming.py``) and prints the time to
 first audio.
 
-On a CUDA card the production plane is ``--bf16 --int8-weights``: the AR
-decode runs kernel A each step, the denoiser and conditioner attention
-run kernel B (unless ``--no-flash``), and the AR prefill/latent passes
-run kernel C once B*S^2 crosses the config's threshold (the latent pass
-does at --batch-size 8). Without ``--bf16`` the run is the f32 parity
-plane and no kernel runs.
+On a CUDA card the denoiser and conditioner attention run kernel B on
+either plane unless ``--no-flash`` (``flash_on``: the JAX CLI's rule,
+with its TPU read as the card). The production plane is ``--bf16
+--int8-weights``: the AR decode also runs kernel A each step, and the AR
+prefill/latent passes run kernel C once B*S^2 crosses the config's
+threshold (the latent pass does at --batch-size 8). Without ``--bf16``
+the run is the f32 parity plane: kernel B runs there on an f32 qkv, on
+the split-TF32 tensor-core body, and the AR stage runs plain PyTorch.
 """
 
 from __future__ import annotations
@@ -24,6 +26,14 @@ import os
 import sys
 
 STAGES = ("autoregressive_s", "diffusion_s", "vocoder_s")
+
+
+def flash_on(device, no_flash: bool = False) -> bool:
+    """Whether the denoiser runs its attention kernel (``use_flash``):
+    on the card whatever the plane, unless ``no_flash``; never on the CPU.
+    The JAX CLI's rule (flash on its TPU unless --no-flash); the server
+    takes it too."""
+    return device.type == "cuda" and not no_flash
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -192,8 +202,7 @@ def run(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     models.diffusion_cfg = dataclasses.replace(
         models.diffusion_cfg, n_sample_timesteps=args.diffusion_steps,
-        use_flash=(device.type == "cuda" and args.bf16
-                   and not args.no_flash))
+        use_flash=flash_on(device, args.no_flash))
 
     sampler_params = sampler_overrides(args.temperature, args.top_k,
                                        args.top_p_drop,

@@ -14,6 +14,7 @@ def _wrappers():
             "flash_attention_causal_qkv": fa.flash_attention_causal_qkv,
             "flash_attention_grouped": fa._grouped_flash,
             "flash_attention_generic": fa._generic_flash,
+            "flash_attention_f32": fa._launch_d,
             "lvc_gated_residual": lvc_gated_residual,
             "flash_packed_i8": fi.flash_packed_i8,
             "int8_quantize_kv": fi.quantize_kv}

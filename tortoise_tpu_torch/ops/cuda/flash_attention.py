@@ -30,9 +30,11 @@ Two CUDA sources carry them (``attention_body`` picks one per call):
   (B, T, H, D) memory. A materialized bias is read as (H, Tq, ld) with
   ld a multiple of 4 (``_bias_operand`` pads it). B and C at width 64 run
   its fused-qkv body (one map over the whole qkv).
-- ``csrc/flash_attention_bhtd.cu``: every f32 call (an FMA body), over
-  (b, h, t) strides: D1 and D2, and B and C on strided views of an f32
-  qkv, as the Pallas kernels take either dtype.
+- ``csrc/flash_attention_bhtd.cu``: every f32 call, on the tensor cores
+  in split TF32 (each f32 operand as hi + lo TF32 values, three TF32
+  products a product), over (b, h, t) strides: D1 and D2, and B and C on
+  strided views of an f32 qkv, as the Pallas kernels take either dtype.
+  It takes any Tkv (the keys stream through shared memory in tiles).
 
 The kernels walk the keys in shared-memory tiles with an online softmax,
 so the (Tq, Tkv) scores never reach device memory; they are bound by
@@ -214,7 +216,7 @@ def flash_attention_packed(qkv: torch.Tensor, n_head: int,
     (H, 2T-1) ``bias_vec``. Returns (B, T, H*D) in qkv's dtype. On a card
     a bf16 qkv at head width 64 runs the fused-qkv body, at 16, 32 and
     128 the generic wgmma + TMA body on strided views of qkv; an f32 qkv
-    runs the FMA body on those views."""
+    runs the split-TF32 body on those views."""
     t = qkv.shape[1]
     if bias_vec is None and bias_table is not None:
         bias_vec = relpos_bias_vector(bias_table, t, bias_scale,
@@ -272,7 +274,7 @@ def flash_attention_causal_qkv(qkv: torch.Tensor, n_head: int,
     None. Returns (B, S, H*D) in qkv's dtype. On a card a bf16 qkv at
     head width 64 runs the fused-qkv body, at 16, 32 and 128 the generic
     wgmma + TMA body (causal) on strided views of qkv; an f32 qkv runs
-    the FMA body on those views."""
+    the split-TF32 body on those views."""
     if not qkv.is_cuda:
         return flash_attention_causal_qkv_plain(qkv, n_head, kv_valid)
     qkv, d = _check_cuda_qkv(qkv, n_head)
@@ -341,18 +343,22 @@ def flash_attention_plain(q, k, v, bias=None, kv_valid=None, causal=False,
 
 def _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
               name):
-    """flash_attention_bhtd.cu's FMA body on (B, H, T, D) f32 q, k, v
-    (any strides, d contiguous) into the f32 view ``out``."""
+    """flash_attention_bhtd.cu's split-TF32 body on (B, H, T, D) f32
+    q, k, v (any strides, d contiguous; any Tkv) into the f32 view
+    ``out``."""
     b, h, tq, d = q.shape
     tkv = k.shape[2]
     if d not in HEAD_WIDTHS:
         raise ValueError(f"kernel D takes head width {HEAD_WIDTHS}, got {d}")
     if any(x.dtype != torch.float32 for x in (q, k, v, out)):
-        raise ValueError(f"the FMA body takes f32 q, k, v and output, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}")
+        raise ValueError(f"the TF32x3 body takes f32 q, k, v and output, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}, {out.dtype}")
     if k.shape != (b, h, tkv, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} do not match")
+    if out.shape != q.shape or out.stride(-1) != 1:
+        raise ValueError(f"out {tuple(out.shape)} must match q "
+                         f"{tuple(q.shape)} with d contiguous")
     q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     dev = q.device
     if bias_vec is not None:
@@ -377,6 +383,10 @@ def _launch_d(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
         ctypes.addressof(strides), b, h, tq, tkv, d, ptr(bias_vec),
         ptr(bias_full), ptr(mask), scale, int(causal), build.stream_ptr()),
         name)
+    _launch_d.launches += 1
+
+
+_launch_d.launches = 0  # f32 calls of any route (B, C, D1 or D2)
 
 
 def attention_body(dtype: torch.dtype, d: int, route: str) -> str:
@@ -384,16 +394,16 @@ def attention_body(dtype: torch.dtype, d: int, route: str) -> str:
     "D1" or "D2") on (dtype, head width d): "qkv", the fused-qkv body of
     csrc/flash_attention.cu (bf16 B and C at width 64); "tma", its
     generic body over strided views (every other bf16 call: D1 and D2 at
-    widths 16, 32, 64 and 128, B and C at 16, 32 and 128); "fma", the f32
-    body of flash_attention_bhtd.cu (every route on f32 inputs, at every
-    width). Raises for what no body takes."""
+    widths 16, 32, 64 and 128, B and C at 16, 32 and 128); "tf32x3", the
+    split-TF32 tensor-core body of flash_attention_bhtd.cu (every route on
+    f32 inputs, at every width). Raises for what no body takes."""
     if route not in ("B", "C", "D1", "D2"):
         raise ValueError(f"unknown attention route {route!r}")
     if d not in HEAD_WIDTHS:
         raise ValueError(f"kernel {route} takes head width {HEAD_WIDTHS}, "
                          f"got {d}")
     if dtype == torch.float32:
-        return "fma"
+        return "tf32x3"
     if dtype != torch.bfloat16:
         raise ValueError(f"kernel {route} does not take {dtype}")
     return "qkv" if route in ("B", "C") and d == 64 else "tma"
@@ -572,7 +582,7 @@ def _launch_body(route, q, k, v, out, bias_vec, bias_full, mask, causal,
                  scale):
     """Kernel ``route`` (B, C, D1 or D2) on strided views into ``out``:
     bf16 q, k, v on the wgmma + TMA body, f32 on flash_attention_bhtd.cu's
-    FMA body."""
+    split-TF32 body."""
     if attention_body(q.dtype, q.shape[-1], route) == "tma":
         _launch_tma(q, k, v, out, bias_vec, bias_full, mask, causal, scale,
                     f"tt_flash_tma ({route})")

@@ -27,7 +27,9 @@ alone, without the mesh, under the device lock.
 
 The HTTP front end (``python -m tortoise_tpu_torch.serve``) is stdlib
 only: POST /synthesize returns audio/wav, POST /stream a chunked
-streaming WAV, GET /healthz the stats.
+streaming WAV, GET /healthz the stats. On the card its denoiser runs
+kernel B on either plane (``cli.flash_on``): bf16 by default, f32 with
+``--f32``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from tortoise_tpu_torch.cli import flash_on
 from tortoise_tpu_torch.io.voice import load_voice_latent
 from tortoise_tpu_torch.io.wav import streaming_wav_header, wav_bytes
 from tortoise_tpu_torch.models.ar import FUSED_MAX_BATCH
@@ -690,7 +693,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     models.diffusion_cfg = dataclasses.replace(
-        models.diffusion_cfg, use_flash=device.type == "cuda" and args.bf16)
+        models.diffusion_cfg, use_flash=flash_on(device))
     server = SynthesisServer(
         models, compute_dtype=compute_dtype,
         int8_weights=args.int8_weights and args.bf16,
