@@ -39,8 +39,11 @@ Phases (any failure exits nonzero before the result line):
    pass's shapes, head widths 16, 32 and 128, a row with no valid key);
    kernel F, the
    int8-score packed attention, at the A/B's (2, 2176) x 16 x 64 (all
-   keys valid and a ragged row; timed beside its plain version, kernel B
-   on the same qkv and its bound) and at head widths 32 and 128; then the A/B script scripts/torch_ubench_attn_int8_ab.py
+   keys valid and a ragged row; timed beside its plain version, its
+   quantize pass and its attention kernel each alone, kernel B on the
+   same qkv, its bound and the design's floor), at head widths 32 and
+   128 and on one head at 28,000 keys; then the A/B script
+   scripts/torch_ubench_attn_int8_ab.py
    in a fresh process, whose launch counts of F and B must equal the
    calls it made (F's launches in the result line are that run's);
 4. end to end at full production width (random weights, bf16 + int8
@@ -81,7 +84,12 @@ Phases (any failure exits nonzero before the result line):
    with flash on and off (1e-4 of max |out|, both timed);
 5. small-input agreement: the tiny f32 parity plane on the card against
    the same run on the CPU (same tokens, mel and audio within tolerance),
-   on the default configs and on the fallback + fused-LVC configs; then
+   on the default configs and on the fallback + fused-LVC configs; the
+   stages' JAX flags: the AR stage with qkv_f16 (same tokens; on the
+   bf16 + int8 kernel plane it must launch neither kernel A nor C, and
+   the same call without it both) and the diffusion and vocoder stages
+   with bucketed=False at a 39-frame mel on a 2-heads-of-64 denoiser
+   (kernel B) and on the fallback + fused-LVC configs (D1 and E); then
    synthesize_batch (3 ragged rows) and stream_synthesize with the
    random draws of both runs from one numpy source.
 
@@ -258,6 +266,10 @@ E_HOPS = (8, 64, 256)
 F_SHAPE = (2, 2176, 16, 64)
 F_RAGGED = 1813
 F_WIDTHS = (32, 128)
+# one head at a length whose bias window and key mask the first design
+# could not stage in a block (it took at most 26,368 padded keys at width
+# 64)
+F_LONG = 28000
 
 
 def bf16_qkv(torch, g, b, t, h, d):
@@ -1230,14 +1242,57 @@ def _check_f(torch, K, name, qkv, h, valid, table, got, worst):
     return max(worst, err)
 
 
+def expf_sass_ops(torch) -> dict:
+    """The SASS instructions of one expf (what torch.exp runs on a CUDA
+    float tensor, and what kernel F takes for its weights), by pipe: a
+    one-line kernel compiled for sm_90a and read back with cuobjdump.
+    Kernel F's design floor puts its exps on the FMA pipe at this count."""
+    from tortoise_tpu_torch.ops.cuda import build
+
+    nvcc = build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "expf.cu")
+        with open(src, "w") as f:
+            f.write("__global__ void k(float* x) {\n"
+                    "  x[threadIdx.x] = expf(x[threadIdx.x]);\n}\n")
+        cubin = os.path.join(tmp, "expf.cubin")
+        subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-O3", "-cubin", "-o", cubin, src], check=True,
+                       capture_output=True, timeout=300)
+        sass = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+    ops = []
+    for line in sass.splitlines():
+        parts = line.split("*/")
+        if len(parts) < 2 or "/*" not in parts[0]:
+            continue
+        op = parts[1].strip().split(" ")[0].split(".")[0]
+        if op and op[0] != "@" and op.isupper():
+            ops.append(op)
+    body = ops[ops.index("LDG") + 1:ops.index("STG")] if "LDG" in ops \
+        and "STG" in ops else ops
+    fma = [o for o in body if o in ("FFMA", "FADD", "FMUL", "FSETP", "FSEL",
+                                    "FMNMX", "FCHK", "FSWZADD")]
+    mufu = [o for o in body if o == "MUFU"]
+    print(f"  expf on sm_90a: {len(body)} instructions between load and "
+          f"store, {len(fma)} on the FMA pipe, {len(mufu)} MUFU: {body}")
+    return dict(fma=len(fma), mufu=len(mufu), all=len(body))
+
+
 def check_kernel_f(torch, results):
     """Kernel F, the int8-score packed attention, at the A/B's F_SHAPE in
     bf16: all keys valid, then row 1 valid to F_RAGGED, each one launch
     of the quantize pass and one of the attention kernel, held to its
     plain version by ``_check_f``; the first timed beside its plain
-    version, its quantize pass alone and kernel B on the same qkv (its
-    yardstick: no one PyTorch call computes F), with its bound. Then 4
-    heads of F_WIDTHS at a ragged (2, 300), in bf16 and f32."""
+    version, its quantize pass and its attention kernel each alone, and
+    kernel B on the same qkv (its yardstick: no one PyTorch call computes
+    F), with the function's bound and the design's floor (the second
+    score pass's int8 products, each exp's expf instructions on the FMA
+    pipe). Then 4 heads of F_WIDTHS at a ragged (2, 300), in bf16 and
+    f32, and F_LONG, a length past the bias window the first design
+    staged a block."""
     import numpy as np
 
     from tortoise_tpu_torch.ops.cuda import flash_attention as KB
@@ -1270,6 +1325,9 @@ def check_kernel_f(torch, results):
         b_ms = cuda_ms(torch, lambda: KB.flash_attention_packed(
             qkv, h, valid, bias_table=table))
         quant_ms = cuda_ms(torch, lambda: K.quantize_kv(qkv, h))
+        mask, bias = K.i8_side_inputs(qkv, h, valid, table)
+        kv = K.quantize_kv(qkv, h)
+        attn_ms = cuda_ms(torch, lambda: K.attend_i8(qkv, h, kv, mask, bias))
         pairs = float(b * h * t * t)
         # the function's work: q . k and p . v (2D int8 ops a pair each);
         # the second score pass and the int8 K/V round trip through memory
@@ -1277,10 +1335,19 @@ def check_kernel_f(torch, results):
         f_bound = bound(nbytes(qkv, valid, table, got),
                         flops=4.0 * d * pairs, flop_rate=INT8_OPS,
                         exps=pairs)
-        print(f"  {label}: kernel {ms:.4f} ms (its quantize pass alone "
-              f"{quant_ms:.4f} ms), plain {plain_ms:.3f} ms, kernel B on "
-              f"the same qkv {b_ms:.4f} ms, bound {f_bound['bound_ms']:.4f} "
-              f"ms ({f_bound['bound_by']})")
+        tp = K.padded_length(t)
+        exp_ops = expf_sass_ops(torch)
+        floor_pass2 = 2.0 * d * b * h * tp * tp / INT8_OPS * 1e3
+        floor_expf = float(b * h * tp * tp) * exp_ops["fma"] / (
+            F32_FLOPS / 2) * 1e3
+        print(f"  {label}: kernel {ms:.4f} ms = quantize pass {quant_ms:.4f} "
+              f"ms + attention kernel {attn_ms:.4f} ms (each alone), plain "
+              f"{plain_ms:.3f} ms, kernel B on the same qkv {b_ms:.4f} ms, "
+              f"bound {f_bound['bound_ms']:.4f} ms ({f_bound['bound_by']}); "
+              f"the design's floor beside it: its second score pass "
+              f"{floor_pass2:.4f} ms of int8 products, its {tp}^2 x {b * h} "
+              f"padded exps at {exp_ops['fma']} FMA-pipe instructions each "
+              f"{floor_expf:.4f} ms")
         main = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **f_bound)
     for d in F_WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1291,6 +1358,15 @@ def check_kernel_f(torch, results):
             worst = _check_f(torch, K, f"F (2, 300) x 4 heads of {d} "
                              f"{dtype}", x, 4, valid, tab,
                              K.flash_packed_i8(x, 4, valid, tab), worst)
+    t_long = F_LONG
+    x = torch.randn((1, t_long, 3 * 64), device=dev).bfloat16()
+    valid = torch.arange(t_long, device=dev)[None, :] < t_long - 77
+    tab = torch.randn((32, 1), device=dev) * 0.1
+    worst = _check_f(torch, K, f"F (1, {t_long}) x 1 head of 64 (past the "
+                     f"first design's bias-window limit)", x, 1, valid, tab,
+                     K.flash_packed_i8(x, 1, valid, tab), worst)
+    del x
+    torch.cuda.empty_cache()
     results["F"] = dict(max_abs_err=worst, **main)
 
 
@@ -1517,6 +1593,110 @@ def check_small_agreement(torch, launch_counts, reset_launch_counts):
             if not rel <= 1e-3:
                 fail(f"tiny f32 {label} {name} differs between cuda and "
                      f"cpu")
+
+
+def check_small_api_flags(torch, launch_counts, reset_launch_counts):
+    """The two flags the JAX package's stages take, on the card vs the
+    CPU at tiny widths. qkv_f16: the AR stage on the reference sampler
+    plane (f32), with the flag: same tokens, latents within 1e-3; then on
+    kernel A's and C's plane (bf16 + int8, fused decode on, the flash
+    prefill gate at 0; 2 heads of 64, the head width kernel A takes),
+    where the flag must keep both kernels off while the same call
+    without it launches both. bucketed=False: the
+    diffusion stage (mt19937 noise) and the vocoder on a 9-frame latent,
+    a 39-frame mel that no bucket divides, on a denoiser of 2 heads of 64
+    (kernel B, the packed route) and on the fallback + fused-LVC configs
+    (kernels D1 and E); each must launch its kernels, and the mel and
+    audio agree within 1e-3 of the CPU's max."""
+    import dataclasses
+
+    import numpy as np
+
+    from tortoise_tpu_torch.io.checkpoint import random_ar_params
+    from tortoise_tpu_torch.pipeline import ar_stage
+    from tortoise_tpu_torch.pipeline import diffusion_stage as DS
+    from tortoise_tpu_torch.pipeline import vocoder_stage as VS
+    from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels
+    from tortoise_tpu_torch.rng import ReferenceRng
+
+    def agree(label, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        if got.shape != want.shape:
+            fail(f"{label}: shapes {got.shape} vs {want.shape}")
+        err = float(np.abs(got - want).max())
+        rel = err / max(float(np.abs(want).max()), 1e-30)
+        print(f"  {label} cuda vs cpu: max_abs_err={err:.3e} rel={rel:.3e} "
+              f"(tol rel 1e-3)")
+        if not rel <= 1e-3:
+            fail(f"{label} differs between cuda and cpu")
+
+    voice = np.random.default_rng(0).normal(0, 0.5, 64).astype(np.float32)
+    toks = [3, 9, 4, 12, 7, 1, 20, 5]
+    models = TortoiseModels.random(3, tiny=True)
+    runs = {dev: ar_stage.autoregressive(
+        models.ar_params, toks, voice, 1, models.ar_cfg, "reference", 5,
+        None, None, True, device=dev) for dev in ("cpu", "cuda")}
+    if runs["cpu"][1] != runs["cuda"][1]:
+        fail(f"tiny qkv_f16 AR stage: token streams differ {runs['cpu'][1]} "
+             f"vs {runs['cuda'][1]}")
+    agree("tiny f32 qkv_f16 AR latents", runs["cuda"][0][0],
+          runs["cpu"][0][0])
+    # kernel A takes heads of 64: 2 heads of 64 at the tiny depth
+    cfg = dataclasses.replace(models.ar_cfg, d_model=128, n_head=2,
+                              d_mlp=256, fused_decode=True,
+                              flash_prefill_min_score=0)
+    params = random_ar_params(cfg, 3)
+    voice128 = np.random.default_rng(1).normal(0, 0.5, 128).astype(
+        np.float32)
+    for flag in (False, True):
+        reset_launch_counts()
+        lat, _ = ar_stage.autoregressive(
+            params, toks, voice128, 2, cfg, "reference", 5, None,
+            torch.bfloat16, flag, True, device="cuda")
+        c = launch_counts()
+        a, cc = c["decode_trunk"], c["flash_attention_causal_qkv"]
+        print(f"  tiny bf16 + int8 AR stage, qkv_f16={flag}: kernel A "
+              f"{a} launches, kernel C {cc}")
+        if not np.isfinite(lat[0]).all():
+            fail(f"tiny bf16 + int8 qkv_f16={flag}: latents not finite")
+        if flag and (a or cc):
+            fail(f"qkv_f16 launched kernel A or C: {c}")
+        if not flag and not (a and cc):
+            fail(f"the bf16 + int8 AR stage without qkv_f16 did not "
+                 f"launch kernels A and C: {c}")
+
+    packed = dict(diffusion={"d_model": 128, "n_head": 2, "timestep_dim": 128,
+                             "use_flash": True})
+    fused = dict(diffusion={"use_flash": True},
+                 vocoder={"use_pallas_lvc": True})
+    for label, cfgs, needs in (
+            ("packed (2 heads of 64)", packed, ("flash_attention_packed",)),
+            ("fallback + fused LVC", fused, ("flash_attention_grouped",
+                                             "lvc_gated_residual"))):
+        m = TortoiseModels.random(3, tiny=True, **cfgs)
+        dcfg = dataclasses.replace(m.diffusion_cfg, n_sample_timesteps=8)
+        lat = np.random.default_rng(4).normal(0, 0.5, (9, dcfg.d_model))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            reset_launch_counts()
+            mel = DS.diffusion(m.diffusion_params, lat, dcfg, 0,
+                               ReferenceRng(4), True, None, False,
+                               device=dev)
+            audio = VS.vocoder(m.vocoder_params, mel, m.vocoder_cfg, 0,
+                               ReferenceRng(2), None, False, device=dev)
+            out[dev] = (mel, audio, launch_counts())
+        c = out["cuda"][2]
+        frames = out["cuda"][0].shape[1]
+        total = frames + m.vocoder_cfg.mel_pad_frames
+        if frames % 64 == 0 or total % 32 == 0 or any(c[k] < 1
+                                                      for k in needs):
+            fail(f"tiny unbucketed {label}: {frames} mel frames, {total} "
+                 f"vocoder frames, launches {c}, want {needs}")
+        print(f"  tiny unbucketed {label}: {frames} mel frames, {total} "
+              f"vocoder frames; launches {({k: c[k] for k in needs})}")
+        agree(f"tiny unbucketed {label} mel", out["cuda"][0], out["cpu"][0])
+        agree(f"tiny unbucketed {label} audio", out["cuda"][1],
+              out["cpu"][1])
 
 
 class _HttpFront:
@@ -2133,9 +2313,9 @@ def _request_8_rank(rank, world, rows, voices):
         return float((got - want).abs().max() / want.abs().max())
 
     l1, c1 = ar.prefill(full, cfg, ids, valid, voice, bf16)
-    l2, c2 = ar.prefill(local, cfg, ids, valid, voice, bf16, tp)
+    l2, c2 = ar.prefill(local, cfg, ids, valid, voice, bf16, tp=tp)
     d1, _ = ar.decode_step(full, cfg, c1, tok, 0, bf16)
-    d2, _ = ar.decode_step(local, cfg, c2, tok, 0, bf16, tp)
+    d2, _ = ar.decode_step(local, cfg, c2, tok, 0, bf16, tp=tp)
     dcfg = models.diffusion_cfg
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn((2, dcfg.n_mel, 256), generator=g, device="cuda")
@@ -2685,6 +2865,7 @@ def main(argv=None) -> int:
     print("[5/5] small-input agreement (tiny f32 plane, cuda vs cpu)",
           flush=True)
     check_small_agreement(torch, launch_counts, reset_launch_counts)
+    check_small_api_flags(torch, launch_counts, reset_launch_counts)
     check_small_serving_agreement(torch)
 
     line = {"kernels": [

@@ -681,6 +681,32 @@ def test_int8_kernel_f_takes_its_widths_and_dtypes_on_card(cuda_device,
     _assert_i8_close(got, qkv, 4, valid, table)
 
 
+def _old_i8_limit(d):
+    """The longest padded length the first design of kernel F took at
+    head width d: it staged the whole bias window and key mask a block
+    (128 q8 rows and a 64-key K tile of d + 16 bytes, a V tile of d rows
+    of 80 bytes, then 4 (2 Tp + 160) bytes) in the card's 232448."""
+    fixed = 192 * (d + 16) + 80 * d + 640
+    return (232448 - fixed) // 8 // 128 * 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_int8_kernel_f_past_the_old_bias_window_on_card(cuda_device, dtype,
+                                                        d):
+    """One head at 27,500 keys (27,520 padded), past every width's limit
+    of the first design; the bias window and mask now stream with each
+    key tile. A ragged row end."""
+    t = 27500
+    assert TI.padded_length(t) > _old_i8_limit(d)
+    qkv, table, valid = _i8_inputs(1, t, 1, d, None, d, cuda_device)
+    valid[0, t - 77:] = False
+    got = TI.flash_packed_i8(qkv.to(dtype), 1, valid, table)
+    assert got.dtype == dtype
+    _assert_i8_close(got, qkv.to(dtype), 1, valid, table)
+
+
 @pytest.mark.cuda
 def test_int8_kernel_f_scales_q_per_128_row_block_on_card(cuda_device):
     """Q scaled 50x in one 128-row block of one head: its scale is that

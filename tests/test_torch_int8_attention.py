@@ -29,6 +29,7 @@ import jax.numpy as jnp
 
 from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as FI
 from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+from tortoise_tpu_torch.ops.cuda.flash_attention import relpos_bias_vector
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-2
@@ -182,13 +183,16 @@ def test_wrapper_raises_on_a_head_width_it_does_not_take(d):
 
 
 def test_card_launch_checks_the_shared_memory_limit_before_building():
-    """A length whose key mask and bias window outgrow a block's shared
-    memory is refused before any kernel is built."""
-    qkv = torch.zeros((1, 30000, 3 * 64), dtype=torch.bfloat16)
-    assert FI.i8_smem_bytes(64, FI.padded_length(30000)) > \
-        FI.TMA_SMEM_LIMIT
-    assert FI.i8_smem_bytes(64, 2176) < 48 * 1024
-    with pytest.raises(ValueError, match="shared memory"):
+    """The bias window and key mask stream with each key tile, so a
+    block's shared memory no longer bounds the length; the one limit left,
+    exact int32 context sums (Tp * 127^2 < 2^31), is refused before any
+    kernel is built."""
+    assert FI.MAX_TP % FI.BQ == 0
+    assert FI.MAX_TP * 127 * 127 < 2 ** 31
+    assert (FI.MAX_TP + FI.BQ) * 127 * 127 >= 2 ** 31
+    qkv = torch.zeros((1, 1, 3 * 64), dtype=torch.bfloat16).expand(
+        1, FI.MAX_TP + 1, 3 * 64)
+    with pytest.raises(ValueError, match="int32"):
         FI.launch_i8(qkv, 1, None, None)
 
 
@@ -196,9 +200,13 @@ def test_side_inputs_pad_the_mask_and_bias_to_128_rows():
     qkv, table, valid = _inputs(2, 200, 4, 32, 180)
     mask, bias = FI.i8_side_inputs(torch.tensor(qkv), 4, torch.tensor(valid),
                                    torch.tensor(table))
-    assert tuple(mask.shape) == (2, 256) and tuple(bias.shape) == (4, 511)
+    assert tuple(mask.shape) == (2, 256) and tuple(bias.shape) == (4, 512)
     assert (mask[0, :200] == 0).all() and (mask[0, 200:] == -1e30).all()
     assert (mask[1, :180] == 0).all() and (mask[1, 180:] == -1e30).all()
+    # bias[h, (j - i) + Tp]: column 0 is the aligning pad
+    assert (bias[:, 0] == 0).all()
+    assert torch.equal(bias[:, 1:], relpos_bias_vector(
+        torch.tensor(table), 256, FI.BIAS_SCALE))
 
 
 def test_ab_script_on_the_cpu_matches_the_jax_ab(jax_ab, port_ab, capsys,
@@ -229,3 +237,19 @@ def test_ab_script_on_the_cpu_matches_the_jax_ab(jax_ab, port_ab, capsys,
     assert res["calls"] == 1 and res["shape"] == [b, h, t, d]
     assert set(res["launches"].values()) == {0}
     assert res["max_abs_err"] == pytest.approx(acc["max_abs_err"])
+
+
+def test_int8_variants_match_the_source():
+    """scripts/torch_int8_variants.py builds each variant of kernel F by a
+    text substitution: every one must match csrc/flash_attention_int8.cu
+    exactly once, or the script raises on the card."""
+    mod = _load("torch_int8_variants", "scripts/torch_int8_variants.py")
+    src = open(os.path.join(ROOT, "tortoise_tpu_torch", "csrc",
+                            "flash_attention_int8.cu")).read()
+    assert mod.VARIANTS["as built"] == []
+    for name, subs in mod.VARIANTS.items():
+        text = src
+        for old, new in subs:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert (text != src) == bool(subs), name

@@ -35,6 +35,7 @@ from typing import Tuple
 import torch
 
 from tortoise_tpu_torch.config import ARConfig
+from tortoise_tpu_torch.ops import sampling as S
 from tortoise_tpu_torch.ops.basic import gelu, layer_norm, pdot
 from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
 from tortoise_tpu_torch.ops.cuda.flash_attention import (
@@ -79,15 +80,25 @@ def _attn_out_merged(block, merged, x_res, cfg: ARConfig, compute_dtype,
     return x + (y + block["fc_proj_b"].to(y.dtype))
 
 
-def flash_prefill_on(cfg: ARConfig, compute_dtype, shape,
+def flash_prefill_on(cfg: ARConfig, compute_dtype, qkv_f16: bool, shape,
                      n_head=None) -> bool:
     """True when the full-sequence passes take kernel C: bf16 plane only,
-    an even number of (this rank's) heads, and B*S^2 >= cfg.
-    flash_prefill_min_score over this rank's rows."""
+    not the qkv_f16 reproduction plane, an even number of (this rank's)
+    heads, and B*S^2 >= cfg.flash_prefill_min_score over this rank's
+    rows. (The JAX twin's ``have_valid`` is always true here: the port's
+    trunk always has its key-validity row.)"""
     b, s = shape
-    return (cfg.flash_prefill and compute_dtype == torch.bfloat16
+    return (cfg.flash_prefill and not qkv_f16
+            and compute_dtype == torch.bfloat16
             and b * s * s >= cfg.flash_prefill_min_score
             and (n_head or cfg.n_head) % 2 == 0)
+
+
+def _f16_round_trip(qkv, qkv_f16: bool):
+    """The reference's f16 round trip of the qkv activations
+    (main.cpp:2789-2790) with ``qkv_f16``: through float16 and on in f32,
+    whatever the compute dtype, as the JAX package does."""
+    return qkv.to(torch.float16).float() if qkv_f16 else qkv
 
 
 def _layer(blocks, l: int) -> dict:
@@ -98,14 +109,17 @@ def _layer(blocks, l: int) -> dict:
 
 
 def transformer(params, x, seq_valid, cfg: ARConfig, compute_dtype=None,
-                tp=None) -> Tuple[torch.Tensor, list, list]:
+                qkv_f16: bool = False, tp=None
+                ) -> Tuple[torch.Tensor, list, list]:
     """The trunk over a full sequence. Returns (hidden, per-layer k list,
     per-layer v list) with k/v in the packed (B, S, H*Dh) layout (this
-    rank's heads under tp)."""
+    rank's heads under tp). Where the JAX twin takes an additive (B, 1,
+    S, S) ``bias`` third, this takes the (B, S) ``seq_valid`` row and
+    builds the causal bias itself."""
     b, s, _ = x.shape
     h, dh = local_count(cfg.n_head, tp, "heads"), cfg.d_head
     hd = h * dh
-    use_flash = flash_prefill_on(cfg, compute_dtype, (b, s), h)
+    use_flash = flash_prefill_on(cfg, compute_dtype, qkv_f16, (b, s), h)
     i = torch.arange(s, device=x.device)
     bias = torch.where((i[:, None] >= i[None, :])[None]
                        & seq_valid[:, None, :], 0.0, NEG_INF)[:, None]
@@ -121,7 +135,9 @@ def transformer(params, x, seq_valid, cfg: ARConfig, compute_dtype=None,
             ks.append(qkv[:, :, hd:2 * hd])
             vs.append(qkv[:, :, 2 * hd:])
         else:
-            qkv = pdot(y, block["attn_w"], compute_dtype) + block["attn_b"]
+            qkv = _f16_round_trip(
+                pdot(y, block["attn_w"], compute_dtype) + block["attn_b"],
+                qkv_f16)
             q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
             scores = pdot(q, k.transpose(-1, -2), compute_dtype) / (
                 float(dh) ** 0.5)
@@ -166,10 +182,12 @@ def _embed(params, text_ids, text_valid, mel_ids, mel_pos, voice, cfg):
 
 
 def prefill(params, cfg: ARConfig, text_ids, text_valid, voice,
-            compute_dtype=None, tp=None) -> Tuple[torch.Tensor, KVCache]:
+            compute_dtype=None, qkv_f16: bool = False, tp=None
+            ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill over [latent | text | start-mel]: returns next-token logits
     (B, V) and the primed KV cache. text_ids/text_valid (B, Tpad);
-    voice (D,) or (B, D)."""
+    voice (D,) or (B, D); ``qkv_f16`` the reference's f16 round trip of
+    the qkv activations (kernel C stays off)."""
     b, t = text_ids.shape
     dev = text_ids.device
     start = torch.full((b, 1), cfg.start_mel_token, dtype=torch.long,
@@ -180,7 +198,8 @@ def prefill(params, cfg: ARConfig, text_ids, text_valid, voice,
         x = x.to(compute_dtype)
     ones = torch.ones((b, 1), dtype=torch.bool, device=dev)
     seq_valid = torch.cat([ones, text_valid, ones], dim=1)
-    h, ks, vs = transformer(params, x, seq_valid, cfg, compute_dtype, tp)
+    h, ks, vs = transformer(params, x, seq_valid, cfg, compute_dtype,
+                            qkv_f16, tp=tp)
     logits = _head(params, h[:, -1, :], cfg, compute_dtype, tp)
     s = x.shape[1]
     cache_dtype = compute_dtype or torch.float32
@@ -228,14 +247,16 @@ def _embed_step(params, tokens, step: int):
 
 
 def decode_step(params, cfg: ARConfig, cache: KVCache, tokens, step: int,
-                compute_dtype=None, tp=None, split_rows=None
-                ) -> Tuple[torch.Tensor, KVCache]:
+                compute_dtype=None, qkv_f16: bool = False, tp=None,
+                split_rows=None) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: tokens (B,) sampled ids, ``step`` the 0-based
     decode index. Returns (logits (B, V), cache) — the cache tensors are
     updated in place (slot cache.length) and returned in a new KVCache.
-    ``split_rows``: kernel A's ``split_rows`` (a dp rank's global batch)."""
+    ``qkv_f16``: the reference's f16 round trip of the qkv activations
+    (kernel A has none, so it stays off). ``split_rows``: kernel A's
+    ``split_rows`` (a dp rank's global batch)."""
     b = tokens.shape[0]
-    if (tp is None and cfg.fused_decode
+    if (tp is None and not qkv_f16 and cfg.fused_decode
             and _int8_plane(params, compute_dtype) and _fits_fused(b)):
         x = _embed_step(params, tokens, step)
         bias_row = torch.where(cache.valid, 0.0, NEG_INF).float()
@@ -259,7 +280,9 @@ def decode_step(params, cfg: ARConfig, cache: KVCache, tokens, step: int,
     for l in range(cfg.n_layer):
         block = _layer(params["blocks"], l)
         y = layer_norm(x, block["ln1_w"], block["ln1_b"], cfg.ln_eps)
-        qkv = pdot(y, block["attn_w"], compute_dtype) + block["attn_b"]
+        qkv = _f16_round_trip(
+            pdot(y, block["attn_w"], compute_dtype) + block["attn_b"],
+            qkv_f16)
         qkv = qkv.reshape(b, 3, h_, dh)
         q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
         k4 = cache.k[l].reshape(b, -1, h_, dh)
@@ -291,10 +314,20 @@ def decode_step(params, cfg: ARConfig, cache: KVCache, tokens, step: int,
 
 def decode_sample_step(params, cfg: ARConfig, cache: KVCache, tokens,
                        step: int, u, compute_dtype=None,
-                       sampler: tuple = DEFAULT_SAMPLER, split_rows=None
-                       ) -> Tuple[torch.Tensor, KVCache]:
+                       sampler: tuple = DEFAULT_SAMPLER, split_rows=None,
+                       qkv_f16: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """decode_step plus the full sampler in kernel A against pre-drawn
-    uniforms u (B, 1) f32. Returns (sampled tokens (B,) int32, cache)."""
+    uniforms u (B, 1) f32. Returns (sampled tokens (B,) int32, cache).
+    Kernel A has no f16 round trip of the qkv activations, so with
+    ``qkv_f16`` this is decode_step(qkv_f16=True) and the plain sampler
+    on the same uniforms (the JAX package's sampling loop takes that
+    plane there too)."""
+    if qkv_f16:
+        logits, cache = decode_step(params, cfg, cache, tokens, step,
+                                    compute_dtype, qkv_f16)
+        probs, ids = S.process_logits_topk(logits, tokens[:, None].long(),
+                                           *sampler)
+        return S.sample_from_topk_u(u.reshape(-1, 1), probs, ids), cache
     b = tokens.shape[0]
     x = _embed_step(params, tokens, step)
     bias_row = torch.where(cache.valid, 0.0, NEG_INF).float()
@@ -308,9 +341,11 @@ def decode_sample_step(params, cfg: ARConfig, cache: KVCache, tokens,
 
 
 def latent_forward(params, cfg: ARConfig, text_ids, text_valid, mel_ids,
-                   voice, compute_dtype=None, tp=None) -> torch.Tensor:
+                   voice, compute_dtype=None, qkv_f16: bool = False,
+                   tp=None) -> torch.Tensor:
     """Full-sequence pass over [latent | text | 502 mel codes]; returns
-    the (B, 500, D) speech-conditioning latents (mel positions 0..501)."""
+    the (B, 500, D) speech-conditioning latents (mel positions 0..501).
+    ``qkv_f16`` as in ``prefill``."""
     b, t = text_ids.shape
     m = mel_ids.shape[1]
     dev = text_ids.device
@@ -322,6 +357,7 @@ def latent_forward(params, cfg: ARConfig, text_ids, text_valid, mel_ids,
                            text_valid,
                            torch.ones((b, m), dtype=torch.bool, device=dev)],
                           dim=1)
-    h, _, _ = transformer(params, x, seq_valid, cfg, compute_dtype, tp)
+    h, _, _ = transformer(params, x, seq_valid, cfg, compute_dtype, qkv_f16,
+                          tp=tp)
     h = _latent_head(params, h, cfg)
     return h[:, 1 + t:1 + t + m - 2]

@@ -19,10 +19,12 @@ padded to a multiple of 128 rows (padded keys masked):
 The natural-exp domain: the Pallas kernel's log2(e) folding is a TPU
 workaround. On a card the wrapper launches two kernels of
 ``csrc/flash_attention_int8.cu`` (head widths 32, 64 and 128, bf16 or
-f32 qkv): ``quantize_kv``, the K/V quantize pass (its own launch
-counter), then the attention kernel (``flash_packed_i8.launches``). A
-CPU tensor takes ``flash_packed_i8_plain``, the kernel's reference; a
-CUDA tensor launches both kernels or raises.
+f32 qkv): ``quantize_kv``, the K/V quantize pass (one 8-block cluster a
+(batch row, head, part); its own launch counter), then the attention
+kernel (``flash_packed_i8.launches``; wgmma + TMA, the keys walked twice).
+Nothing is staged per length, so Tp is bounded only by exact int32 sums
+(``MAX_TP``). A CPU tensor takes ``flash_packed_i8_plain``, the kernel's
+reference; a CUDA tensor launches both kernels or raises.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ import torch.nn.functional as F
 from tortoise_tpu_torch.ops.cuda import build
 from tortoise_tpu_torch.ops.cuda.flash_attention import (
     NEG_INF,
-    TMA_SMEM_LIMIT,
     _merge,
     _split_packed,
     _toeplitz_full,
@@ -51,12 +52,9 @@ def padded_length(t: int) -> int:
     return -(-t // BQ) * BQ
 
 
-def i8_smem_bytes(d: int, tp: int) -> int:
-    """Dynamic shared memory of one attention block (``attn_smem_bytes``
-    in the .cu): q8 (128 rows) and a 64-key K tile of d + 16 bytes a
-    row, a V tile of d rows of 80 bytes, then f32 the bias window (Tp +
-    128), the key mask (Tp) and 32 floats of scratch."""
-    return 128 * (d + 16) + 64 * (d + 16) + d * 80 + 4 * (2 * tp + 128 + 32)
+# the longest Tp whose context sums round(127 p) . vi stay exact in int32:
+# Tp * 127^2 < 2^31 (``kMaxTp`` in the .cu)
+MAX_TP = BQ * ((2 ** 31 - 1) // (127 * 127) // BQ)
 
 
 INV127 = 1.0 / 127  # XLA compiles the Pallas kernel's "/ 127.0" as a
@@ -110,7 +108,8 @@ def flash_packed_i8_plain(qkv: torch.Tensor, n_head: int,
     q8, sq = quantize_q_plain(q)
     sc = sq.repeat_interleave(BQ, dim=2) * sk[..., None] * (float(d) ** -0.5)
     s = (_exact_product(q8, ki.transpose(-1, -2)).float() * sc[..., None]
-         + _toeplitz_full(bias, tp, tp)[None] + mask[:, None, None, :])
+         + _toeplitz_full(bias[:, 1:], tp, tp)[None]
+         + mask[:, None, None, :])
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     ctx = _exact_product(torch.round(p * 127.0), vi).float()
@@ -136,17 +135,20 @@ def _check(qkv: torch.Tensor, n_head: int, kv_valid) -> None:
 def i8_side_inputs(qkv: torch.Tensor, n_head: int, kv_valid: torch.Tensor,
                    bias_table: torch.Tensor, bias_max_distance: int = 64):
     """(mask, bias) as the card kernels read them: the (B, Tp) f32 additive
-    key mask (padded keys -1e30) and the (H, 2 Tp - 1) f32 Toeplitz
-    bias. Neither depends on qkv's values, so a caller that runs many
-    calls on one mask and table builds them once (``launch_i8``)."""
+    key mask (padded keys -1e30) and the (H, 2 Tp) f32 Toeplitz bias,
+    bias[h, (j - i) + Tp] (column 0 a zero pad, so the 192-delta window
+    of every (128-row block, 64-key tile) starts 16-byte aligned for the
+    kernel's bulk copies). Neither depends on qkv's values, so a caller
+    that runs many calls on one mask and table builds them once
+    (``launch_i8``)."""
     t = qkv.shape[1]
     tp = padded_length(t)
     valid = F.pad(kv_valid.to(device=qkv.device, dtype=torch.bool),
                   (0, tp - t))
     mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32).contiguous()
-    bias = relpos_bias_vector(bias_table.to(qkv.device), tp, BIAS_SCALE,
-                              bias_max_distance)
-    if tuple(bias.shape) != (n_head, 2 * tp - 1):
+    bias = F.pad(relpos_bias_vector(bias_table.to(qkv.device), tp,
+                                    BIAS_SCALE, bias_max_distance), (1, 0))
+    if tuple(bias.shape) != (n_head, 2 * tp):
         raise ValueError(f"bias_table has {bias.shape[0]} heads, want "
                          f"{n_head}")
     return mask, bias
@@ -155,8 +157,8 @@ def i8_side_inputs(qkv: torch.Tensor, n_head: int, kv_valid: torch.Tensor,
 def quantize_kv(qkv: torch.Tensor, n_head: int):
     """Kernel F's quantize pass on the card: (ki (B, H, Tp, D), vi
     transposed (B, H, D, Tp) with keys permuted in 32-key chunks, int8;
-    scales (B, H, 2) f32). Counts its launches apart from the attention
-    kernel."""
+    scales (B, H, 2) f32). One launch (an 8-block cluster a (b, h, part)),
+    counted apart from the attention kernel."""
     b, t, c3 = qkv.shape
     d = c3 // (3 * n_head)
     tp = padded_length(t)
@@ -185,34 +187,49 @@ def _card_qkv(qkv: torch.Tensor) -> torch.Tensor:
     return qkv
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and 16-byte aligned (the kernel bulk-copies it)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def launch_i8(qkv: torch.Tensor, n_head: int, mask: torch.Tensor,
               bias: torch.Tensor) -> torch.Tensor:
     """Kernel F on the card with the side inputs of ``i8_side_inputs``:
     the quantize pass, then the attention kernel. Returns (B, T, H*D) in
     qkv's dtype."""
-    qkv = _card_qkv(qkv)
     b, t, c3 = qkv.shape
+    tp = padded_length(t)
+    if tp > MAX_TP:
+        raise ValueError(f"kernel F sums {tp} padded keys of round(127 p) "
+                         f". vi in int32, exact only up to {MAX_TP} keys")
     d = c3 // (3 * n_head)
     if d not in I8_WIDTHS:
         raise ValueError(f"kernel F takes head width {I8_WIDTHS}, got {d}")
-    tp = padded_length(t)
-    need = i8_smem_bytes(d, tp)
-    if need > TMA_SMEM_LIMIT:
-        raise ValueError(f"kernel F's block needs {need} bytes of shared "
-                         f"memory for {tp} keys at head width {d}, over the "
-                         f"card's {TMA_SMEM_LIMIT}")
     if tuple(mask.shape) != (b, tp) or mask.dtype != torch.float32 or \
-            tuple(bias.shape) != (n_head, 2 * tp - 1) or \
+            tuple(bias.shape) != (n_head, 2 * tp) or \
             bias.dtype != torch.float32:
         raise ValueError("mask and bias must be i8_side_inputs' f32 (B, Tp) "
-                         "and (H, 2 Tp - 1)")
-    mask, bias = mask.contiguous(), bias.contiguous()
-    ki, vit, scales = quantize_kv(qkv, n_head)
+                         "and (H, 2 Tp)")
+    qkv = _card_qkv(qkv)
+    mask, bias = _aligned(mask), _aligned(bias)
+    return attend_i8(qkv, n_head, quantize_kv(qkv, n_head), mask, bias)
+
+
+def attend_i8(qkv: torch.Tensor, n_head: int, kv, mask: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """Kernel F's attention kernel alone, on the quantize pass's ``kv`` =
+    (ki, vit, scales) and ``launch_i8``'s checked, aligned qkv and side
+    inputs (``chip_smoke.py`` times it apart from the quantize pass).
+    Counted in ``flash_packed_i8.launches``."""
+    b, t, c3 = qkv.shape
+    d = c3 // (3 * n_head)
+    ki, vit, scales = kv
     out = torch.empty((b, t, n_head * d), dtype=qkv.dtype, device=qkv.device)
     build.check(build.library().tt_flash_packed_i8(
         qkv.data_ptr(), int(qkv.dtype == torch.float32), ki.data_ptr(),
         vit.data_ptr(), scales.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-        b, t, tp, n_head, d, float(d) ** -0.5, out.data_ptr(),
+        b, t, padded_length(t), n_head, d, float(d) ** -0.5, out.data_ptr(),
         build.stream_ptr()), "tt_flash_packed_i8")
     flash_packed_i8.launches += 1
     return out
@@ -238,5 +255,5 @@ def flash_packed_i8(qkv: torch.Tensor, n_head: int,
 flash_packed_i8.launches = 0
 
 __all__ = ["flash_packed_i8", "flash_packed_i8_plain", "quantize_kv",
-           "quantize_kv_plain", "quantize_q_plain", "launch_i8",
+           "quantize_kv_plain", "quantize_q_plain", "launch_i8", "attend_i8",
            "i8_side_inputs"]

@@ -263,7 +263,7 @@ def _first_stop(flags, dp):
 
 def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
               cache, generator, compute_dtype, sampler, rows=None, dp=None,
-              tp=None):
+              tp=None, qkv_f16=False):
     """On-device sampling loop over this rank's rows. Returns (tokens
     (B, steps) int32, lengths (B,)) on the device: lengths[b] counts ids
     appended to sequence b (stop included) under the reference's
@@ -296,8 +296,10 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
     tokens = [tok]
     finished = tok == stop
     lengths = torch.ones((b,), dtype=torch.int32, device=dev)
-    # false under tp: a tp rank's params hold no head pack
-    fuse = ar.can_fuse_sampling(params, cfg, compute_dtype, b, sampler)
+    # false under tp (a tp rank's params hold no head pack) and with
+    # qkv_f16 (kernel A has no f16 round trip), as in the JAX package
+    fuse = not qkv_f16 and ar.can_fuse_sampling(params, cfg, compute_dtype,
+                                                b, sampler)
     # flags[n - 1]: every row sampled stop in the step that made n tokens
     flags = torch.zeros((cfg.max_decode_steps,), dtype=torch.int32,
                         device=dev)
@@ -319,8 +321,8 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
                                                split_rows=split)
         else:
             logits, cache = ar.decode_step(params, cfg, cache, prev,
-                                           step - 1, compute_dtype, tp,
-                                           split)
+                                           step - 1, compute_dtype, qkv_f16,
+                                           tp=tp, split_rows=split)
             probs, ids = S.process_logits_topk(logits, prev[:, None].long(),
                                                *sampler)
             tok = S.sample_from_topk_u(u, probs, ids)
@@ -338,11 +340,11 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
 @torch.inference_mode()
 def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
                          ARConfig(), seed: int = 0, compute_dtype=None,
+                         qkv_f16: bool = False, mesh=None,
                          int8_weights: bool = False,
                          return_device_latents: bool = False,
                          substage_timings: Optional[dict] = None,
-                         sampler_params=None, device=None,
-                         mesh=None) -> Tuple:
+                         sampler_params=None, device=None) -> Tuple:
     """On-device ("jax"-plane) AR stage over the rows of ``tokens_list``
     (ragged lengths share the longest row's text bucket, masked), with
     one shared (d,) voice or per-row (B, d) voices. Returns
@@ -350,8 +352,10 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     (B, 500, D) on the device, keep_lens, padded). On the bf16 + int8
     plane each decode step is one kernel-A call when B <= 16 and top_k <=
     128 (``ar.can_fuse_sampling``); otherwise decode_step and the plain
-    sampler. ``mesh`` (``parallel.make_mesh``): this rank runs its rows
-    and heads and returns every row (see the module docstring)."""
+    sampler. ``qkv_f16``: the reference's f16 round trip of the qkv
+    activations (kernels A and C stay off, as in the JAX package).
+    ``mesh`` (``parallel.make_mesh``): this rank runs its rows and heads
+    and returns every row (see the module docstring)."""
     device = resolve_device(device)
     sampler = normalize_sampler(sampler_params)
     tokens_list = [list(map(int, t)) for t in tokens_list]
@@ -387,7 +391,7 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
         st["ar_cast_s"] = time.monotonic() - t_sub
         t_sub = time.monotonic()
     logits, cache = ar.prefill(params, cfg, text_ids, text_valid, voices,
-                               compute_dtype, tp)
+                               compute_dtype, qkv_f16, tp=tp)
     if st is not None:
         sync(device)
         st["ar_prefill_s"] = time.monotonic() - t_sub
@@ -398,7 +402,7 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     first_ids[:, -1] = cfg.start_mel_token
     gen = common.make_generator(seed, device)
     toks, lengths = _generate(params, cfg, logits, first_ids, cache, gen,
-                              compute_dtype, sampler, rows, dp, tp)
+                              compute_dtype, sampler, rows, dp, tp, qkv_f16)
     if dp is not None:
         toks, lengths = dp.all_gather(toks), dp.all_gather(lengths)
     toks, lengths = toks.cpu().numpy(), lengths.cpu().numpy()
@@ -411,7 +415,7 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     mel_ids = torch.as_tensor(np.asarray(padded, np.int64)[rows],
                               device=device)
     latents = ar.latent_forward(params, cfg, text_ids, text_valid, mel_ids,
-                                voices, compute_dtype, tp)
+                                voices, compute_dtype, qkv_f16, tp=tp)
     if dp is not None:
         latents = dp.all_gather(latents)
     if st is not None:
@@ -426,7 +430,7 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
 def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
                    cfg: ARConfig = ARConfig(), sampler: str = "jax",
                    seed: int = 0, rng=None, compute_dtype=None,
-                   int8_weights: bool = False,
+                   qkv_f16: bool = False, int8_weights: bool = False,
                    return_device_latents: bool = False,
                    substage_timings: Optional[dict] = None,
                    sampler_params=None, device=None) -> Tuple:
@@ -436,14 +440,16 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
     padded_sequences).
 
     sampler="jax": on-device loop seeded by ``seed``;
-    sampler="reference": host loop driven by ``rng`` (a ReferenceRng)."""
+    sampler="reference": host loop driven by ``rng`` (a ReferenceRng).
+    ``qkv_f16``: the reference's f16 round trip of the qkv activations
+    (kernels A and C stay off)."""
     device = resolve_device(device)
     tokens = list(map(int, tokens))
     _check_token_range([tokens], cfg)
     if sampler == "jax":
         return autoregressive_batch(
             params, [tokens] * batch_size, np.asarray(voice, np.float32),
-            cfg, seed=seed, compute_dtype=compute_dtype,
+            cfg, seed=seed, compute_dtype=compute_dtype, qkv_f16=qkv_f16,
             int8_weights=int8_weights,
             return_device_latents=return_device_latents,
             substage_timings=substage_timings,
@@ -468,7 +474,7 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
         st["ar_cast_s"] = time.monotonic() - t_sub
         t_sub = time.monotonic()
     logits, cache = ar.prefill(params, cfg, text_ids, text_valid, voice,
-                               compute_dtype)
+                               compute_dtype, qkv_f16)
     if st is not None:
         sync(device)
         st["ar_prefill_s"] = time.monotonic() - t_sub
@@ -494,7 +500,7 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
             break
         tok = torch.as_tensor(samples, device=device)
         logits, cache = ar.decode_step(params, cfg, cache, tok, step,
-                                       compute_dtype)
+                                       compute_dtype, qkv_f16)
         prev_ids = [[int(s)] for s in samples]
         step += 1
     if st is not None:
@@ -504,7 +510,7 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
     padded = [apply_padding(s, cfg) for s in sequences]
     mel_ids = torch.as_tensor(np.asarray(padded, np.int64), device=device)
     latents = ar.latent_forward(params, cfg, text_ids, text_valid, mel_ids,
-                                voice, compute_dtype)
+                                voice, compute_dtype, qkv_f16)
     if st is not None:
         sync(device)
         st["ar_latent_s"] = time.monotonic() - t_sub

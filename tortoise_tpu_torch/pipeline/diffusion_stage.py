@@ -6,7 +6,8 @@ eval (cond rows, then uncond rows). Semantics as in the JAX package:
 output length L*4*24000/22050; the variance channel comes from the
 conditioned eval only; loop step i handles respaced t = S-1-i; noise is
 drawn every step even though the last step discards it; lengths round up
-to buckets with masked norms and attention.
+to buckets with masked norms and attention (``bucketed=False``: to the
+longest row's own lengths, masks dropped when every row fills them).
 
 Two noise planes: ``diffusion_batch_device`` (and ``diffusion_batch``,
 its host-list form) draws from a ``torch.Generator`` through
@@ -155,6 +156,14 @@ def posterior_step(sched, cfg: DiffusionConfig, x, cond_mean, uncond_mean,
     return mean
 
 
+def _pads(lat_len: int, out_len: int, bucketed: bool):
+    """(lat_pad, out_pad): the lengths rounded up to LAT_BUCKET and
+    OUT_BUCKET, or kept as they are with ``bucketed=False``."""
+    if not bucketed:
+        return lat_len, out_len
+    return round_up(lat_len, LAT_BUCKET), round_up(out_len, OUT_BUCKET)
+
+
 def _masks(lat_lens, out_lens, lat_pad, out_pad, device):
     lat_mask = torch.arange(lat_pad, device=device)[None, :] \
         < torch.as_tensor(lat_lens, device=device)[:, None]
@@ -204,10 +213,11 @@ def _denoise_loop(params, cfg, sched, code_emb2, x, out_buckets, out_mask,
 def diffusion_batch_device(params, latents_dev, keep_lens,
                            cfg: DiffusionConfig = DiffusionConfig(),
                            seed: int = 0, variance_swap: bool = True,
-                           compute_dtype=None, int8_weights: bool = False,
-                           device=None, progress=None,
+                           compute_dtype=None, mesh=None,
+                           int8_weights: bool = False, device=None,
+                           progress=None,
                            substage_timings: Optional[dict] = None,
-                           mesh=None):
+                           bucketed: bool = True):
     """Device latents (B, >=L, D) with per-row keep lengths -> the mel as
     a device (B, n_mel, out_pad) tensor plus per-row lengths (numpy), all
     rows in one masked batch. ``progress(fraction)`` fires at 0 and after
@@ -215,7 +225,9 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
     walls of the weight cast and of the rest (conditioner plus the
     denoising loop), synchronising the device at each boundary. ``mesh``:
     this rank denoises its rows and heads and returns every row (see the
-    module docstring)."""
+    module docstring). ``bucketed=False`` pads to the longest row's own
+    lengths instead of LAT_BUCKET / OUT_BUCKET (the JAX package's host
+    wrappers reach that; its device entry always rounds up)."""
     device = resolve_device(device)
     st = substage_timings
     t_sub = time.monotonic()
@@ -231,8 +243,8 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
     lat_lens = np.asarray(keep_lens, np.int64)
     out_lens = np.asarray([mel_length_for_latents(int(n)) for n in lat_lens],
                           np.int64)
-    lat_pad = round_up(int(lat_lens.max()), LAT_BUCKET)
-    out_pad = round_up(int(out_lens.max()), OUT_BUCKET)
+    lat_pad, out_pad = _pads(int(lat_lens.max()), int(out_lens.max()),
+                             bucketed)
     lat_in = latents_dev.to(device).float()[:, :lat_pad]
     if lat_in.shape[1] < lat_pad:
         lat_in = torch.nn.functional.pad(
@@ -275,23 +287,24 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
 def diffusion_batch(params, latents_list,
                     cfg: DiffusionConfig = DiffusionConfig(), seed: int = 0,
                     variance_swap: bool = True, compute_dtype=None,
-                    int8_weights: bool = False, device=None, progress=None,
-                    mesh=None):
+                    bucketed: bool = True, mesh=None, progress=None,
+                    int8_weights: bool = False, device=None):
     """Host list of (L_i, 1024) latents -> list of (100, T_i) host mels,
     decoded together in one masked batch (diffusion_batch_device on the
-    rows zero-padded to the longest one's bucket; ``mesh`` as there)."""
+    rows zero-padded to the longest one; ``bucketed`` and ``mesh`` as
+    there)."""
     device = resolve_device(device)
     lats = [np.asarray(l, np.float32) for l in latents_list]
     if not lats:
         raise ValueError("latents_list is empty")
     lens = [l.shape[0] for l in lats]
-    lat_in = np.zeros((len(lats), round_up(max(lens), LAT_BUCKET),
-                       lats[0].shape[1]), np.float32)
+    lat_in = np.zeros((len(lats), max(lens), lats[0].shape[1]), np.float32)
     for i, l in enumerate(lats):
         lat_in[i, :l.shape[0]] = l
     mel, out_lens = diffusion_batch_device(
         params, torch.as_tensor(lat_in), lens, cfg, seed, variance_swap,
-        compute_dtype, int8_weights, device, progress, mesh=mesh)
+        compute_dtype, mesh, int8_weights, device, progress,
+        bucketed=bucketed)
     mel = mel.float().cpu().numpy()
     return [mel[i, :, :out_lens[i]] for i in range(len(lats))]
 
@@ -300,24 +313,24 @@ def diffusion_batch(params, latents_list,
 def diffusion(params, latents: np.ndarray,
               cfg: DiffusionConfig = DiffusionConfig(), seed: int = 0,
               rng=None, variance_swap: bool = True, compute_dtype=None,
-              int8_weights: bool = False, device=None,
-              progress=None) -> np.ndarray:
+              bucketed: bool = True, progress=None,
+              int8_weights: bool = False, device=None) -> np.ndarray:
     """Latents (L, 1024) -> normalized mel (100, T) on the host.
 
     rng=None: torch.Generator noise (diffusion_batch at B=1);
     rng=ReferenceRng: the reference's mt19937 noise stream, with
-    ``progress`` after every step."""
+    ``progress`` after every step. ``bucketed=False`` pads to the true
+    lengths instead of the buckets."""
     device = resolve_device(device)
     if rng is None:
         return diffusion_batch(params, [latents], cfg, seed, variance_swap,
-                               compute_dtype, int8_weights, device,
-                               progress)[0]
+                               compute_dtype, bucketed, progress=progress,
+                               int8_weights=int8_weights, device=device)[0]
     latents = np.asarray(latents, np.float32)
     params = _prepare_params(params, int8_weights, device)
     lat_len = latents.shape[0]
     out_len = mel_length_for_latents(lat_len)
-    lat_pad = round_up(lat_len, LAT_BUCKET)
-    out_pad = round_up(out_len, OUT_BUCKET)
+    lat_pad, out_pad = _pads(lat_len, out_len, bucketed)
     lat_in = np.zeros((1, lat_pad, latents.shape[1]), np.float32)
     lat_in[0, :lat_len] = latents
     lat_mask, out_mask = _masks([lat_len], [out_len], lat_pad, out_pad,

@@ -158,10 +158,11 @@ def synthesize_batch(models: TortoiseModels,
                      messages: Optional[List[str]] = None,
                      tokens_list: Optional[List[List[int]]] = None,
                      voices=None, seed: int = 0, compute_dtype=None,
-                     tokenizer_method: str = "greedy", progress=None,
-                     int8_weights: bool = False, stage_sync: bool = True,
-                     materialize: bool = True, sampler_params=None,
-                     device=None, mesh=None) -> List[SynthesisResult]:
+                     tokenizer_method: str = "greedy", mesh=None,
+                     progress=None, int8_weights: bool = False,
+                     stage_sync: bool = True, materialize: bool = True,
+                     sampler_params=None,
+                     device=None) -> List[SynthesisResult]:
     """Batched serving path: one utterance per row of ``tokens_list`` (or
     of ``messages``, tokenized), each stage one batched computation with
     per-row masked lengths. ``voices``: one (d,) latent or path shared by

@@ -4,8 +4,8 @@
 Denormalize the [-1, 1] mel to the Tacotron dB range, append
 ``mel_pad_frames`` frames of -11.5129, draw 64-channel Gaussian noise,
 run the vocoder; audio length is (M + pad frames) * 256 - 6. Lengths
-round up to a bucket, masked, with the reflection written at the true
-edge. The noise of ``vocoder_batch_device`` / ``vocoder_batch`` is one
+round up to a bucket (``bucketed=False``: to the longest row's frames),
+masked, with the reflection written at the true edge. The noise of ``vocoder_batch_device`` / ``vocoder_batch`` is one
 (B, 64, bucket) draw through ``draw_normal``, like the JAX package's
 ``normal(PRNGKey(seed), ...)``; all rows vocode in one pass (the JAX
 package splits batches above 8 rows for the TPU's memory).
@@ -72,6 +72,12 @@ def draw_normal(generator, shape, device) -> torch.Tensor:
                        dtype=torch.float32)
 
 
+def _pad(total: int, bucketed: bool) -> int:
+    """The padded frame count: ``total`` rounded up to MEL_BUCKET, or kept
+    with ``bucketed=False``."""
+    return round_up(total, MEL_BUCKET) if bucketed else total
+
+
 def _padded_mel(mel_norm, lens, pad_total, cfg):
     """(B, n_mel, T) normalized mel, zero past per-row ``lens`` ->
     denormalized (B, n_mel, pad_total) with the pad frames written."""
@@ -88,17 +94,20 @@ def _padded_mel(mel_norm, lens, pad_total, cfg):
 @torch.inference_mode()
 def vocoder_batch_device(params, mel_dev, mel_lens,
                          cfg: VocoderConfig = VocoderConfig(), seed: int = 0,
-                         compute_dtype=None, device=None, mesh=None):
+                         compute_dtype=None, mesh=None, device=None,
+                         bucketed: bool = True):
     """Device (B, n_mel, T) normalized mel with per-row lengths -> list of
     per-row float32 host audio arrays; noise from a torch.Generator.
     ``mesh``: this rank vocodes its rows and returns every row (see the
-    module docstring)."""
+    module docstring). ``bucketed=False`` pads to the longest row's
+    frames instead of MEL_BUCKET (the JAX package's host wrappers reach
+    that; its device entry always rounds up)."""
     device = resolve_device(device)
     params = device_params(params, device, mesh)
     lens = np.asarray(mel_lens, np.int64)
     b = len(lens)
     totals = lens + cfg.mel_pad_frames
-    pad_total = round_up(int(totals.max()), MEL_BUCKET)
+    pad_total = _pad(int(totals.max()), bucketed)
     rows = dp_rows(mesh, b, "vocoder_batch_device")
     mel_v = _padded_mel(mel_dev.to(device)[rows], lens[rows], pad_total, cfg)
     noise = draw_rows(draw_normal, common.make_generator(seed, device),
@@ -115,10 +124,11 @@ def vocoder_batch_device(params, mel_dev, mel_lens,
 
 
 def vocoder_batch(params, mel_list, cfg: VocoderConfig = VocoderConfig(),
-                  seed: int = 0, compute_dtype=None, device=None, mesh=None):
+                  seed: int = 0, compute_dtype=None, bucketed: bool = True,
+                  mesh=None, device=None):
     """Host list of (n_mel, M_i) normalized mels -> list of host audio
-    arrays, vocoded together with per-row masked lengths (``mesh`` as in
-    ``vocoder_batch_device``)."""
+    arrays, vocoded together with per-row masked lengths (``mesh`` and
+    ``bucketed`` as in ``vocoder_batch_device``)."""
     device = resolve_device(device)
     mels = [np.asarray(m, np.float32) for m in mel_list]
     if not mels:
@@ -128,26 +138,27 @@ def vocoder_batch(params, mel_list, cfg: VocoderConfig = VocoderConfig(),
     for i, m in enumerate(mels):
         mel_in[i, :, :m.shape[1]] = m
     return vocoder_batch_device(params, torch.as_tensor(mel_in), lens, cfg,
-                                seed, compute_dtype, device, mesh)
+                                seed, compute_dtype, mesh, device,
+                                bucketed=bucketed)
 
 
 @torch.inference_mode()
 def vocoder(params, mel: np.ndarray, cfg: VocoderConfig = VocoderConfig(),
             seed: int = 0, rng=None, compute_dtype=None,
-            device=None) -> np.ndarray:
+            bucketed: bool = True, device=None) -> np.ndarray:
     """Normalized mel (n_mel, M) -> float32 audio (audio_length(M),).
     rng=None: torch.Generator noise (vocoder_batch at B=1);
     rng=ReferenceRng: the reference's mt19937 noise stream (drawn before
-    the model pass)."""
+    the model pass). ``bucketed=False`` pads to the true frame count."""
     device = resolve_device(device)
     mel = np.asarray(mel, np.float32)
     if rng is None:
         return vocoder_batch(params, [mel], cfg, seed, compute_dtype,
-                             device)[0]
+                             bucketed, device=device)[0]
     params = device_params(params, device)
     n_mel, m = mel.shape
     total = m + cfg.mel_pad_frames
-    pad_total = round_up(total, MEL_BUCKET)
+    pad_total = _pad(total, bucketed)
     mel_in = np.zeros((1, n_mel, pad_total), np.float32)
     mel_in[0, :, :m] = denormalize_tacotron_mel(mel)
     mel_in[0, :, m:total] = MEL_PAD_VALUE
