@@ -47,7 +47,7 @@ Phases (any failure exits nonzero before the result line):
    in a fresh process, whose launch counts of F and B must equal the
    calls it made (F's launches in the result line are that run's);
 4. end to end at full production width (random weights, bf16 + int8
-   unless named, stand-in tokens), nine requests, each with the launch
+   unless named, stand-in tokens), ten requests, each with the launch
    counts set to 0
    before it and read after it: request 1 through the CLI at
    --batch-size 1 must launch kernels A and B, request 2 at --batch-size
@@ -81,7 +81,13 @@ Phases (any failure exits nonzero before the result line):
    --bf16, no --int8-weights) at request 1's settings, must launch kernel
    B on the split-TF32 body 1,044 times (REQUEST_B_LAUNCHES), beside the
    same request with --no-flash (no kernel) and one f32 denoiser eval
-   with flash on and off (1e-4 of max |out|, both timed);
+   with flash on and off (1e-4 of max |out|, both timed); request 10,
+   the port's benchmark (``python -m tortoise_tpu_torch.bench``) in a
+   fresh process with one timed pass, the batch of 8 and its warm-start
+   child (BENCH_ENV), must exit 0 with rtf > 0, its kernel self-check
+   ok, the streaming and batch-8 sections without an error, the child's
+   first run on a plane-cache hit, and A, B and C launched, F not, in
+   its sections' timed passes (their sum is request 10's count);
 5. small-input agreement: the tiny f32 parity plane on the card against
    the same run on the CPU (same tokens, mel and audio within tolerance),
    on the default configs and on the fallback + fused-LVC configs; the
@@ -1502,6 +1508,88 @@ def run_request_9(torch, models, out_dir, smi, reset_launch_counts,
     return counts
 
 
+# request 10's bench settings: one timed pass, the batch of 8 (kernel C
+# runs in its prefill and latent passes), no bf16-weights section
+BENCH_ENV = {"BENCH_REPS": "1", "BENCH_BATCH_SIZES": "8",
+             "BENCH_ALT_PATH": "0"}
+
+
+def run_request_10(smi) -> dict:
+    """The port's benchmark, ``python -m tortoise_tpu_torch.bench``, in a
+    fresh process at full width with BENCH_ENV and its warm-start child,
+    its weights and int8 plane in a git-ignored directory of the
+    checkout. It must exit 0 with a last line that parses, ``rtf`` > 0,
+    ``kernel_check.ok``, the streaming and batched["8"] sections without
+    an error, the warm start's first run on a plane-cache hit, and
+    kernels A, B and C launched, F not, in its sections' timed passes.
+    Returns those launches summed over the sections."""
+    import shutil
+
+    base = os.path.join(ROOT, "_plane_cache")
+    os.makedirs(base, exist_ok=True)
+    work = tempfile.mkdtemp(dir=base)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_ENV, BENCH_WEIGHTS_CACHE=work, PYTHONPATH=ROOT)
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "tortoise_tpu_torch.bench"], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=900)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        fail(f"request 10: the bench exited {proc.returncode}: "
+             f"{proc.stdout[-1500:]} {proc.stderr[-2500:]}")
+    try:
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError) as e:
+        fail(f"request 10: the bench's last line does not parse ({e}): "
+             f"{proc.stdout[-1500:]}")
+    launches = {}
+    for counts in line.get("kernel_launches", {}).values():
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+    batched = line.get("batched", {}).get("8", {"error": "missing"})
+    stream = line.get("streaming", {"error": "missing"})
+    checks = (
+        (line.get("rtf", 0) > 0, f"rtf {line.get('rtf')}"),
+        (line.get("kernel_check", {}).get("ok") is True,
+         f"kernel_check {line.get('kernel_check')}"),
+        ("error" not in stream, f"streaming {stream}"),
+        ("error" not in batched, f"batched 8 {batched}"),
+        (isinstance(line.get("second_process_first_run_s"), (int, float))
+         and line.get("second_process_plane_cache_hit") is True,
+         "warm start: first run "
+         f"{line.get('second_process_first_run_s')}, plane cache hit "
+         f"{line.get('second_process_plane_cache_hit')}"),
+        (all(launches.get(k, 0) > 0 for k in (
+            "decode_trunk", "flash_attention_packed",
+            "flash_attention_causal_qkv")), f"launches {launches}"),
+        (launches.get("flash_packed_i8", 0) == 0
+         and launches.get("int8_quantize_kv", 0) == 0,
+         f"kernel F launched: {launches}"),
+    )
+    for ok, msg in checks:
+        if not ok:
+            fail(f"request 10 (the bench): {msg}")
+    kc = line["kernel_check"]
+    print(f"  request 10 (python -m tortoise_tpu_torch.bench, {BENCH_ENV}): "
+          f"RTF {line['rtf']} (wall {line['wall_s']} s / audio "
+          f"{line['audio_s']} s), AR {line['ar_ms_per_step']} ms/step "
+          f"({line['ar_hbm_roofline_pct']}% of HBM roofline), diffusion "
+          f"{line['diffusion_ms_per_cfg_step']} ms/CFG-step (MFU "
+          f"{line['diffusion_mfu_pct']}%), sync_consistent "
+          f"{line['sync_consistent']}; stream first audio "
+          f"{stream['first_audio_s']} s, RTF {stream['rtf']}; batch 8 "
+          f"aggregate RTF {batched['aggregate_rtf']}; warm start first run "
+          f"{line['second_process_first_run_s']} s (upload "
+          f"{line['second_process_upload_s']} s); kernel check "
+          f"{ {k: v for k, v in kc.items() if k.endswith('maxdiff')} }; "
+          f"process wall {wall:.1f} s [{smi}]")
+    return launches
+
+
 # request 3's configuration: the diffusion fallback (32 heads of 32, so
 # 6 * 32 % 128 != 0 and every attention runs kernel D1) and the fused LVC
 # (kernel E on all 12 conv blocks); widths and T stay full
@@ -2804,7 +2892,8 @@ def main(argv=None) -> int:
     # it must not launch:
     needs = {1: ("A", "B"), 2: ("A", "B", "C"), 3: ("A", "D1", "E"),
              4: ("A", "B", "C"), 5: ("A", "B", "E"), 6: ("A", "B"),
-             7: ("A", "B", "C"), 8: ("A", "B"), 9: ("B", "Bf")}
+             7: ("A", "B", "C"), 8: ("A", "B"), 9: ("B", "Bf"),
+             10: ("A", "B", "C")}
     print("[4/5] end to end at full production width (random weights, "
           "bf16 + int8)", flush=True)
     per_request = {}
@@ -2844,6 +2933,12 @@ def main(argv=None) -> int:
         per_request[9] = run_request_9(torch, models, out_dir, smi,
                                        reset_launch_counts, launch_counts)
         del models
+        # the port's benchmark in its own process: this one's casts go
+        from tortoise_tpu_torch.pipeline.common import clear_cast_cache
+
+        clear_cast_cache()
+        torch.cuda.empty_cache()
+        per_request[10] = run_request_10(smi)
     for r, c in per_request.items():
         print(f"  launches, request {r}: {c}")
         for key in needs[r]:

@@ -43,9 +43,8 @@ assert not bad, bad
 """
 
 # A meta-path finder that refuses the JAX package and JAX itself, as a
-# machine without them would; then every port module imports and the tiny
-# synthesize() runs on the CPU.
-REFUSING_PROBE = """
+# machine without them would.
+REFUSE = """
 import importlib, importlib.abc, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
@@ -55,6 +54,11 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
+"""
+
+# Under it every port module imports and the tiny synthesize() runs on
+# the CPU.
+REFUSING_PROBE = REFUSE + """
 import numpy as np
 import tortoise_tpu_torch
 for m in pkgutil.walk_packages(tortoise_tpu_torch.__path__,

@@ -1,8 +1,9 @@
 """Every public function that the JAX package and the port both have in
-``pipeline/*``, ``models/*`` and ``serve.py`` takes the JAX function's
-parameters in the JAX order, with the port's own parameters (``device``,
-``tp``, ``progress``, ...) after all of JAX's: so a positional JAX call
-binds the same parameters in the port. One case per function.
+``pipeline/*``, ``models/*`` and ``serve.py``, and every public method of
+``TortoiseModels``, takes the JAX function's parameters in the JAX
+order, with the port's own parameters (``device``, ``tp``, ``progress``,
+...) after all of JAX's: so a positional JAX call binds the same
+parameters in the port. One case per function.
 
 Exceptions, by name, with their reason (each is held to its stated
 difference, so the list cannot go stale):
@@ -29,10 +30,25 @@ MODULES = ("pipeline.ar_stage", "pipeline.common", "pipeline.diffusion_stage",
 EXCEPTIONS = ("models.ar.transformer", "models.ar.flash_prefill_on")
 
 
+CLASSES = ("pipeline.synthesize.TortoiseModels",)
+
+
+def _resolve(pkg, name):
+    """``pkg.name``: a module's function or a class's method."""
+    parts = name.split(".")
+    for i in range(len(parts) - 1, 0, -1):
+        try:
+            obj = importlib.import_module(".".join([pkg, *parts[:i]]))
+        except ImportError:
+            continue
+        for part in parts[i:]:
+            obj = getattr(obj, part)
+        return obj
+    raise ImportError(name)
+
+
 def _pair(name):
-    mod, fn = name.rsplit(".", 1)
-    return (getattr(importlib.import_module(f"tortoise_tpu.{mod}"), fn),
-            getattr(importlib.import_module(f"tortoise_tpu_torch.{mod}"), fn))
+    return _resolve("tortoise_tpu", name), _resolve("tortoise_tpu_torch", name)
 
 
 def _shared():
@@ -45,6 +61,14 @@ def _shared():
                     and fn.__module__ == jax_mod.__name__
                     and inspect.isfunction(getattr(port_mod, name, None))):
                 names.append(f"{mod}.{name}")
+    for cls in CLASSES:
+        jax_cls, port_cls = _pair(cls)
+        for name, member in sorted(vars(jax_cls).items()):
+            method = inspect.isfunction(member) or isinstance(
+                member, (classmethod, staticmethod))
+            if method and not name.startswith("_") and \
+                    name in vars(port_cls):
+                names.append(f"{cls}.{name}")
     return names
 
 
@@ -66,7 +90,10 @@ def test_the_shared_functions_are_found():
                  "pipeline.diffusion_stage.diffusion",
                  "pipeline.vocoder_stage.vocoder_batch",
                  "pipeline.vocoder_stage.vocoder",
-                 "pipeline.synthesize.synthesize_batch"):
+                 "pipeline.synthesize.synthesize_batch",
+                 "pipeline.synthesize.TortoiseModels.to_device",
+                 "pipeline.synthesize.TortoiseModels.random",
+                 "pipeline.synthesize.TortoiseModels.from_ggml_dir"):
         assert name in CHECKED
 
 

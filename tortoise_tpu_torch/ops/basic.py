@@ -182,6 +182,22 @@ def group_norm_tc(x: torch.Tensor, n_groups: int, w=None, b=None,
     return out.to(x.dtype)
 
 
+def group_norm(x: torch.Tensor, n_groups: int, w=None, b=None,
+               eps: float = 1e-5, mask=None):
+    """GroupNorm over channel-major (..., C, T) maps: the JAX package's
+    ``group_norm``, as ``group_norm_tc`` on the transposed map. ``mask``
+    (broadcastable to (..., 1, T), bool) restricts the statistics to
+    valid frames and zeroes the rest; ``w`` and ``b`` are (..., C)."""
+    *lead, c, t = x.shape
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=x.device).expand(
+            *lead, 1, t)[..., 0, :]
+    out = group_norm_tc(x.transpose(-1, -2), n_groups,
+                        None if w is None else w.unsqueeze(-2),
+                        None if b is None else b.unsqueeze(-2), eps, mask)
+    return out.transpose(-1, -2)
+
+
 def gelu(x):
     return F.gelu(x, approximate="tanh")
 

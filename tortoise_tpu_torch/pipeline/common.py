@@ -5,6 +5,7 @@ from __future__ import annotations
 import threading
 import warnings
 
+import numpy as np
 import torch
 
 
@@ -29,6 +30,30 @@ def sync(device) -> None:
     are taken at these points."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _on_device(tree, device: torch.device) -> bool:
+    """Whether every array leaf of ``tree`` is a tensor on ``device``."""
+    if isinstance(tree, dict):
+        return all(_on_device(v, device) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_on_device(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.device == device
+    return not isinstance(tree, np.ndarray)
+
+
+def ensure_device(tree, device=None):
+    """``tree`` with every numpy leaf a tensor on ``device`` (default the
+    card). A tree already wholly there is returned as it is, the same
+    object, so the casts memoized on it (``cached_cast``, keyed on its
+    id) stay valid."""
+    from tortoise_tpu_torch.params import tree_to_torch
+
+    device = _device_key(resolve_device(device))
+    if _on_device(tree, device):
+        return tree
+    return tree_to_torch(tree, device)
 
 
 def mesh_size(mesh) -> int:

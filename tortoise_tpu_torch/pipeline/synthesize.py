@@ -40,6 +40,28 @@ class TortoiseModels:
     vocoder_cfg: VocoderConfig = VocoderConfig()
     tokenizer: Optional[Tokenizer] = None
 
+    def to_device(self, include_ar: bool = True,
+                  include_diffusion: bool = True,
+                  device=None) -> "TortoiseModels":
+        """Move the parameter trees onto ``device`` (default the card), in
+        place, and return self. Numpy trees become tensor trees; a tree
+        already on the device is left as it is (idempotent), so the
+        stages' memoized casts of it are kept. The vocoder tree always
+        moves. As in the JAX package, the AR stage casts (or quantizes)
+        its tree itself, and on the int8 plane the diffusion stage
+        quantizes its own: ``include_ar=False`` and
+        ``include_diffusion=False`` leave those trees on the host rather
+        than park an f32 copy beside the cast."""
+        from tortoise_tpu_torch.pipeline.common import ensure_device
+
+        if include_ar:
+            self.ar_params = ensure_device(self.ar_params, device)
+        if include_diffusion:
+            self.diffusion_params = ensure_device(self.diffusion_params,
+                                                  device)
+        self.vocoder_params = ensure_device(self.vocoder_params, device)
+        return self
+
     @classmethod
     def from_ggml_dir(cls, model_dir: str, cache_dir: Optional[str] = None,
                       **cfgs) -> "TortoiseModels":
