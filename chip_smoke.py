@@ -47,7 +47,7 @@ Phases (any failure exits nonzero before the result line):
    in a fresh process, whose launch counts of F and B must equal the
    calls it made (F's launches in the result line are that run's);
 4. end to end at full production width (random weights, bf16 + int8
-   unless named, stand-in tokens), ten requests, each with the launch
+   unless named, stand-in tokens), eleven requests, each with the launch
    counts set to 0
    before it and read after it: request 1 through the CLI at
    --batch-size 1 must launch kernels A and B, request 2 at --batch-size
@@ -88,7 +88,19 @@ Phases (any failure exits nonzero before the result line):
    ok, the streaming and batch-8 sections without an error, the child's
    first run on a plane-cache hit, and A, B and C launched, F not, in
    its sections' timed passes (their sum is request 10's count);
-5. small-input agreement: the tiny f32 parity plane on the card against
+   request 11, the load test of scripts/torch_ubench_serve.py in this
+   process on request 4's weights (8 Poisson arrivals at 2 a second,
+   batches of up to 4 rows), must answer every request with finite
+   latencies in at least 2 batches, an aggregate RTF above 0, and launch
+   A and B;
+5. the per-layer microbenchmarks: scripts 2-10 of
+   scripts/torch_ubench_*.py in this process on the same weights at full
+   width, reps and steps cut; they must run to their results with kernel
+   A in decode on the int8 plane and not on the bf16-weights plane, C in
+   the forced prefill and latent passes and not in the plain ones, B in
+   the denoiser eval with flash on and no kernel with it off, E with
+   use_pallas_lvc and none without, and the gn script's patch gone;
+6. small-input agreement: the tiny f32 parity plane on the card against
    the same run on the CPU (same tokens, mel and audio within tolerance),
    on the default configs and on the fallback + fused-LVC configs; the
    stages' JAX flags: the AR stage with qkv_f16 (same tokens; on the
@@ -1590,6 +1602,137 @@ def run_request_10(smi) -> dict:
     return launches
 
 
+def ubench(name: str):
+    """scripts/torch_ubench_<name>.py, loaded by path (scripts/ is no
+    package)."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "scripts", f"torch_ubench_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_ubench_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# request 11's load test: 8 requests at 2 a second on batches of up to
+# 4 rows, so the server forms more than one batch
+SERVE_LOAD = dict(n_requests=8, rate=2.0, max_batch=4, max_wait_ms=100.0)
+
+
+def run_request_11(torch, models, smi, reset_launch_counts,
+                   launch_counts) -> dict:
+    """The load test of scripts/torch_ubench_serve.py in this process on
+    ``models`` (bf16 + int8, kernel B on): SERVE_LOAD's Poisson arrivals
+    through SynthesisServer.submit. It must answer every request with
+    finite latencies, form at least 2 batches, give an aggregate RTF
+    above 0 and launch kernels A and B. Returns its launch counts."""
+    import math
+
+    reset_launch_counts()
+    r = ubench("serve").run(models, device="cuda", card=smi, **SERVE_LOAD)
+    counts = launch_counts()
+    lat = [r[k] for k in ("p50_s", "p90_s", "p99_s", "max_s")]
+    if not all(math.isfinite(v) and v > 0 for v in lat) \
+            or r["batches"] < 2 or not r["aggregate_rtf"] > 0 \
+            or r["failed_batches"]:
+        fail(f"request 11 (the load test): {r}")
+    print(f"  request 11 (load test, {SERVE_LOAD}): wall {r['wall_s']:.3f} s, "
+          f"aggregate RTF {r['aggregate_rtf']:.5f}, latency p50 "
+          f"{r['p50_s']:.3f} p99 {r['p99_s']:.3f} s, {r['batches']} batches "
+          f"of {r['mean_rows']:.2f} rows, {r['padded_rows']} padded rows "
+          f"[{smi}]")
+    return counts
+
+
+def run_ubench_phase(torch, models, smi, reset_launch_counts) -> None:
+    """Scripts 2-10 of scripts/torch_ubench_*.py once each in this
+    process, on ``models``' trees at full width with cut reps and steps.
+    Each must run to its result; the launches must show kernel A in
+    decode on the int8 plane and not on the bf16-weights plane, kernel C
+    in the forced prefill and latent passes (and not in the plain ones),
+    kernel B with flash on and no kernel with it off, kernel E with
+    use_pallas_lvc and none without; the group-norm patch must be gone
+    after the gn script."""
+    import dataclasses
+
+    import numpy as np
+
+    from tortoise_tpu_torch.models import diffusion as dm
+    from tortoise_tpu_torch.ops import basic
+
+    dev = torch.device("cuda")
+    dcfg = dataclasses.replace(models.diffusion_cfg, use_flash=True)
+    t0 = time.monotonic()
+    reset_launch_counts()
+    res = {}
+    lat = np.random.default_rng(0).normal(
+        0, 0.5, (500, dcfg.d_model)).astype(np.float32)
+    res["diffstage"] = ubench("diffstage").run(
+        models.diffusion_params, dataclasses.replace(
+            dcfg, n_sample_timesteps=8), lat, dev, runs=2, card=smi)
+    res["gn"] = ubench("gn").run(models.diffusion_params, dcfg, 2304, dev,
+                                 reps=1, card=smi)
+    if dm.group_norm_tc is not basic.group_norm_tc:
+        fail("the gn script left models.diffusion.group_norm_tc patched")
+    im = ubench("int8_matmul")
+    res["int8_matmul"] = im.run(im.M, im.SHAPES, dev, reps=10, card=smi)
+    res["decode"] = ubench("decode").run(
+        models.ar_params, models.ar_cfg, steps=8, device=dev, reps=1,
+        sampler=True, card=smi)
+    res["prefill"] = ubench("prefill").run(
+        models.ar_params, models.ar_cfg, device=dev, reps=1, card=smi)
+    res["diffusion"] = ubench("diffusion").run(
+        models.diffusion_params, dcfg, device=dev, reps=1, card=smi)
+    vcfg = models.vocoder_cfg
+    res["vocoder"] = ubench("vocoder").run(models.vocoder_params, vcfg,
+                                           device=dev, reps=1, card=smi)
+    res["vocstage"] = ubench("vocstage").run(models.vocoder_params, vcfg,
+                                             device=dev, runs=2, card=smi)
+    res["sampler_ops"] = ubench("sampler_ops").run(32, dev, reps=1,
+                                                   card=smi)
+    a, c = "decode_trunk", "flash_attention_causal_qkv"
+    b, e = "flash_attention_packed", "lvc_gated_residual"
+    dec, pre = res["decode"], res["prefill"]["runs"]
+    diff, voc = res["diffusion"], res["vocoder"]
+    checks = [
+        *((dec["int8"][k]["decode_launches"].get(a, 0) > 0,
+           f"decode B={k}: kernel A not launched on the int8 plane")
+          for k in dec["int8"]),
+        *((a not in dec["bf16"][k]["decode_launches"],
+           f"decode B={k}: kernel A launched on the bf16-weights plane")
+          for k in dec["bf16"]),
+        *((pre[k]["flash"]["launches"].get(c, 0) > 0
+           and c not in pre[k]["plain"]["launches"],
+           f"prefill B={k}: kernel C in flash / plain "
+           f"{pre[k]['flash']['launches']} / {pre[k]['plain']['launches']}")
+          for k in pre),
+        (diff["flash"]["launches"].get(b, 0) > 0
+         and diff["flash_no_mask"]["launches"].get(b, 0) > 0
+         and not diff["plain"]["launches"],
+         "diffusion launches: " + ", ".join(
+             f"{k} {diff[k]['launches']}"
+             for k in ("flash", "plain", "flash_no_mask"))),
+        (voc["fused_lvc"]["launches"].get(e, 0) > 0
+         and not voc["plain_lvc"]["launches"],
+         f"vocoder launches {voc['fused_lvc']['launches']} / "
+         f"{voc['plain_lvc']['launches']}"),
+        (res["diffstage"]["loop_busy_share"] > 0,
+         f"diffstage {res['diffstage']}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            fail(f"the microbenchmark phase: {msg}")
+    ds = res["diffstage"]
+    print(f"  ubench phase: {len(res)} scripts in "
+          f"{time.monotonic() - t0:.1f} s; diffstage (8 steps) "
+          f"{ds['ms_per_step']:.3f} ms/step, busy share "
+          f"{ds['loop_busy_share']:.3f}; gn base "
+          f"{res['gn']['base']['ms']:.3f} ms, decode int8 B=1 "
+          f"{dec['int8']['1']['decode']['ms_per_step']:.3f} ms/step; "
+          f"kernel C from B*S^2 = {res['prefill']['crossover_score']} [{smi}]")
+
+
 # request 3's configuration: the diffusion fallback (32 heads of 32, so
 # 6 * 32 % 128 != 0 and every attention runs kernel D1) and the fused LVC
 # (kernel E on all 12 conv blocks); widths and T stay full
@@ -2821,7 +2964,7 @@ def main(argv=None) -> int:
     except ImportError as e:
         fail(f"tortoise_tpu_torch not found beside {__file__}: {e}")
 
-    print("[1/5] environment", flush=True)
+    print("[1/6] environment", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
@@ -2829,7 +2972,7 @@ def main(argv=None) -> int:
           f"CUDA {torch.version.cuda}, nvcc {build.find_nvcc()}")
     print(f"  card: {smi}; device_count {torch.cuda.device_count()}")
 
-    print("[2/5] kernel build", flush=True)
+    print("[2/6] kernel build", flush=True)
     t0 = time.monotonic()
     lib_path = build.build()
     build.library()
@@ -2839,7 +2982,7 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  ptxas: " + line.strip())
 
-    print("[3/5] kernels vs plain PyTorch at main-path shapes", flush=True)
+    print("[3/6] kernels vs plain PyTorch at main-path shapes", flush=True)
     results = {}
     check_kernel_a(torch, results)
     check_kernel_b(torch, results)
@@ -2893,8 +3036,8 @@ def main(argv=None) -> int:
     needs = {1: ("A", "B"), 2: ("A", "B", "C"), 3: ("A", "D1", "E"),
              4: ("A", "B", "C"), 5: ("A", "B", "E"), 6: ("A", "B"),
              7: ("A", "B", "C"), 8: ("A", "B"), 9: ("B", "Bf"),
-             10: ("A", "B", "C")}
-    print("[4/5] end to end at full production width (random weights, "
+             10: ("A", "B", "C"), 11: ("A", "B")}
+    print("[4/6] end to end at full production width (random weights, "
           "bf16 + int8)", flush=True)
     per_request = {}
     with tempfile.TemporaryDirectory(dir=ROOT) as out_dir:
@@ -2932,7 +3075,9 @@ def main(argv=None) -> int:
         # the CLI on its default f32 plane: kernel B on the split-TF32 body
         per_request[9] = run_request_9(torch, models, out_dir, smi,
                                        reset_launch_counts, launch_counts)
-        del models
+        # the load test on the same weights
+        per_request[11] = run_request_11(torch, models, smi,
+                                         reset_launch_counts, launch_counts)
         # the port's benchmark in its own process: this one's casts go
         from tortoise_tpu_torch.pipeline.common import clear_cast_cache
 
@@ -2957,7 +3102,14 @@ def main(argv=None) -> int:
               for k, (_, w, _, _) in kernels.items()}
     counts["F"] = ab["launches"]["flash_packed_i8"]  # F's path: the A/B
 
-    print("[5/5] small-input agreement (tiny f32 plane, cuda vs cpu)",
+    print("[5/6] the per-layer microbenchmarks (scripts/torch_ubench_*.py, "
+          "cut reps)", flush=True)
+    run_ubench_phase(torch, models, smi, reset_launch_counts)
+    del models
+    clear_cast_cache()
+    torch.cuda.empty_cache()
+
+    print("[6/6] small-input agreement (tiny f32 plane, cuda vs cpu)",
           flush=True)
     check_small_agreement(torch, launch_counts, reset_launch_counts)
     check_small_api_flags(torch, launch_counts, reset_launch_counts)

@@ -6,6 +6,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
@@ -114,6 +116,43 @@ def test_chip_smoke_imports_without_jax_and_needs_a_card():
         src = f.read()
     assert "import jax" not in src and "from jax" not in src
     assert "tortoise_tpu." not in src.replace("tortoise_tpu_torch", "")
+
+
+UBENCH = sorted(f for f in os.listdir(os.path.join(ROOT, "scripts"))
+                if f.startswith("torch_ubench_") and f.endswith(".py"))
+
+
+def _imported_modules(path):
+    """Every module an import statement of ``path`` names, at any depth
+    (the scripts import most of what they use inside functions)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("script", UBENCH)
+def test_ubench_scripts_import_neither_jax_nor_the_jax_package(script):
+    """No import in scripts/torch_ubench_*.py names jax, jaxlib or the
+    JAX package, and each imports under a finder that refuses them."""
+    path = os.path.join(ROOT, "scripts", script)
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "tortoise_tpu")]
+    assert not bad, (script, bad)
+    probe = REFUSE + (
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('m', %r)\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        % path)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_c_entry_points_match_their_ctypes_signatures():
