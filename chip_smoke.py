@@ -51,8 +51,18 @@ Phases (any failure exits nonzero before the result line):
    counts set to 0
    before it and read after it: request 1 through the CLI at
    --batch-size 1 must launch kernels A and B, request 2 at --batch-size
-   8 must also launch kernel C (the latent pass); request 3, synthesize()
-   with the diffusion fallback config (32 heads of 32) and the fused LVC,
+   8 must also launch kernel C (the latent pass); every request runs its
+   sampling and denoising loops as CUDA graphs of one step
+   (pipeline/graphs.py), whose replays the launch counts include; then
+   the graph phase: synthesize() at request 1's settings on its weights,
+   on the bf16 + int8, the bf16-weights and the f32 planes, with the
+   loops eager and as graphs in turns (eager, graph, graph, eager), must
+   give equal tokens, bit-equal mel and audio and equal launch counts
+   (A, B and Bf among them), and prints each run's wall ms/step, RTF,
+   peak memory, the graphs' capture times and the sampling and
+   denoising loops' wall and busy ms/step alone (cut steps); request 3,
+   synthesize() with the diffusion fallback config (32 heads of 32) and
+   the fused LVC,
    must launch A, D1 and E (12 times) and not B; request 4, six
    concurrent POST /synthesize to the HTTP server, must form one batch
    padded to 8 and launch A, B and C; request 5, one POST /stream on the
@@ -1457,6 +1467,148 @@ def run_request(torch, batch_size: int, out_dir: str, smi: str,
     return res
 
 
+# the graph-loop phase's planes: (name, compute dtype, int8 weights, decode
+# steps): request 1's 500 on its own plane, cut on the two planes whose
+# eager step takes 20-30 ms
+GRAPH_PLANES = (("bf16 + int8", "bfloat16", True, 500),
+                ("bf16 weights", "bfloat16", False, 128),
+                ("f32", None, False, 128))
+GRAPH_TURNS = (True, False, False, True)  # eager, graph, graph, eager
+GRAPH_AR_STEPS = 8  # the busy A/B's decode steps
+GRAPH_DIFFUSION_STEPS = 2  # its denoising steps (of 80)
+
+
+@contextlib.contextmanager
+def eager_loops(eager: bool):
+    """With ``eager``, the stages' sampling and denoising loops run
+    eagerly on the card (their private ``eager`` argument, as an A/B
+    run may); else as they are (step graphs on the card)."""
+    import functools
+
+    from tortoise_tpu_torch.pipeline import ar_stage
+    from tortoise_tpu_torch.pipeline import diffusion_stage as dst
+
+    gen, den = ar_stage._generate, dst._denoise_loop
+    if eager:
+        ar_stage._generate = functools.partial(gen, eager=True)
+        dst._denoise_loop = functools.partial(den, eager=True)
+    try:
+        yield
+    finally:
+        ar_stage._generate, dst._denoise_loop = gen, den
+
+
+def check_graph_loops(torch, smi, reset_launch_counts, launch_counts):
+    """The stage loops as step graphs against the eager loops, at full
+    width on request 1's weights and settings (``synthesize()``, batch 1,
+    seed 0, the stand-in tokens, a zero voice) on the bf16 + int8, the
+    bf16-weights and the f32 planes (GRAPH_PLANES; the last two cut to
+    128 decode steps), in turns (eager, graph, graph, eager): equal
+    tokens, bit-equal mel and audio, equal launch counts (kernels A, B
+    and Bf among them). Prints each run's AR and diffusion
+    wall ms/step, RTF and peak memory, each graph's capture time and the
+    first graph run's extra wall; then wall and busy ms/step of the
+    sampling loop (GRAPH_AR_STEPS steps) and the denoising loop
+    (GRAPH_DIFFUSION_STEPS steps) alone, eager against graph in turns,
+    from the decode and diffstage scripts' ``loop_ab``."""
+    import dataclasses
+
+    import numpy as np
+
+    from tortoise_tpu_torch.pipeline import ar_stage, graphs
+    from tortoise_tpu_torch.pipeline.common import clear_cast_cache
+    from tortoise_tpu_torch.pipeline.synthesize import (
+        TortoiseModels,
+        synthesize,
+    )
+
+    models = TortoiseModels.random(0, diffusion={"use_flash": True})
+    voice = np.zeros((models.ar_cfg.d_model,), np.float32)
+    dev = torch.device("cuda")
+    lat = np.random.default_rng(0).normal(
+        0, 0.5, (500, models.diffusion_cfg.d_model)).astype(np.float32)
+    for name, cd, int8, steps in GRAPH_PLANES:
+        cd = None if cd is None else getattr(torch, cd)
+        plane_models = dataclasses.replace(models, ar_cfg=dataclasses.replace(
+            models.ar_cfg, max_decode_steps=steps))
+        runs = []
+        for eager in GRAPH_TURNS:
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            with eager_loops(eager):
+                res = synthesize(plane_models, tokens=STANDIN_TOKENS,
+                                 voice=voice, seed=0, compute_dtype=cd,
+                                 int8_weights=int8, device=dev)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            t = res.timings
+            dur = len(res.audio) / res.sample_rate
+            runs.append(dict(
+                eager=eager, seq=res.sequences, mel=np.asarray(res.mel),
+                audio=np.asarray(res.audio), counts=launch_counts(),
+                wall=wall, peak=torch.cuda.max_memory_allocated() / 2**20,
+                ar=t["ar_decode_loop_s"] / t["ar_decode_steps"] * 1e3,
+                diff=t["diffusion_loop_s"] / t["diffusion_steps"] * 1e3,
+                rtf=sum(t[k] for k in ("autoregressive_s", "diffusion_s",
+                                       "vocoder_s")) / dur))
+            r = runs[-1]
+            print(f"  graphs, {name}, {'eager' if eager else 'graph'}: AR "
+                  f"{r['ar']:.3f} ms/step, diffusion {r['diff']:.3f} "
+                  f"ms/CFG-step, RTF {r['rtf']:.4f}, call wall {wall:.3f} s, "
+                  f"peak memory {r['peak']:.1f} MiB [{smi}]")
+            if not eager and len(runs) == 2:
+                caps = [f"{k[0]} {g.capture_s:.3f} s"
+                        for k, g in graphs.entries()
+                        if g.capture_s is not None]
+                print(f"  graphs, {name}: captures {caps}")
+        want = runs[0]
+        for r in runs[1:]:
+            if r["seq"] != want["seq"]:
+                fail(f"graphs, {name}: tokens differ between the eager and "
+                     f"the graph loops")
+            for k in ("mel", "audio"):
+                if not np.array_equal(r[k], want[k]):
+                    fail(f"graphs, {name}: {k} differs between the eager and "
+                         f"the graph loops by up to "
+                         f"{float(np.abs(r[k] - want[k]).max()):.3e}")
+            if r["counts"] != want["counts"]:
+                fail(f"graphs, {name}: launch counts differ: eager "
+                     f"{want['counts']}, {r['counts']}")
+        print(f"  graphs, {name}: equal tokens, bit-equal mel and audio, "
+              f"equal launches {want['counts']}; the first graph run's "
+              f"extra wall {runs[1]['wall'] - runs[2]['wall']:.3f} s [{smi}]")
+        # the loops alone: wall and busy a step, in turns
+        dec = ubench("decode")
+        params = ar_stage.cast_matmul_weights(models.ar_params, cd, int8,
+                                              dev)
+        ab = dec.loop_ab(params, ar_stage.size_cache(models.ar_cfg,
+                                                     dec.TEXT_BUCKET), 1,
+                         GRAPH_AR_STEPS, dev, 1, smi, cd, name)
+        ds = ubench("diffstage")
+        plane = {True: "int8", False: "bf16"}[int8] if cd else "f32"
+        stage = ds.Stage(models.diffusion_params, dataclasses.replace(
+            models.diffusion_cfg, n_sample_timesteps=GRAPH_DIFFUSION_STEPS),
+            lat, dev, plane)
+        dab = ds.loop_ab(stage, smi)
+        if not (ab["same_tokens"] and dab["same_mel"]):
+            fail(f"graphs, {name}: the loops alone differ: {ab} {dab}")
+        for what, d in (("sampling loop", ab), ("denoising loop", dab)):
+            if d["graph"]["launches_per_step"] != \
+                    d["eager"]["launches_per_step"]:
+                fail(f"graphs, {name}: {what} launches a step differ: {d}")
+            print(f"  graphs, {name}, {what} alone (ms/step wall / busy, "
+                  f"best of two turns): eager "
+                  f"{d['eager']['ms_per_step']:.3f} / "
+                  f"{d['eager']['busy_ms_per_step']:.3f}, graph "
+                  f"{d['graph']['ms_per_step']:.3f} / "
+                  f"{d['graph']['busy_ms_per_step']:.3f} [{smi}]")
+        del params, stage
+    del models
+    clear_cast_cache()
+    torch.cuda.empty_cache()
+
+
 # kernel B's launches in one request at B = 1: the code conditioner's 4
 # attention blocks once, then 13 attention layers (3 integrator + 10 main)
 # in each of 80 denoising steps
@@ -2015,6 +2167,7 @@ def run_request_4(torch, models, out_dir, smi, reset_launch_counts,
     bodies = [{"tokens": [255, 20 + i % 2] + STANDIN_TOKENS[2:n - 1] + [0],
                "voice": voices[i % 2], "seed": 4}
               for i, n in enumerate((30, 30, 22, 22, 14, 14))]
+    torch.cuda.reset_peak_memory_stats()
     front = _HttpFront(SynthesisServer(
         models, compute_dtype=torch.bfloat16, int8_weights=True,
         max_batch=8, max_wait_ms=2000, device="cuda"))
@@ -2038,6 +2191,7 @@ def run_request_4(torch, models, out_dir, smi, reset_launch_counts,
         wall = time.monotonic() - t0
         counts = launch_counts()
         stats = front.server.stats()
+        peak = torch.cuda.max_memory_allocated() / 2**20
     finally:
         front.close()
     if any(r is None or r[0] != 200 for r in replies):
@@ -2066,7 +2220,8 @@ def run_request_4(torch, models, out_dir, smi, reset_launch_counts,
           f"(stage walls / summed audio s), AR "
           f"{t['ar_decode_loop_s'] / t['ar_decode_steps'] * 1e3:.3f} ms/step, "
           f"diffusion {t['diffusion_loop_s'] / t['diffusion_steps'] * 1e3:.3f}"
-          f" ms/CFG-step; HTTP wall {wall:.2f} s [{smi}]")
+          f" ms/CFG-step; HTTP wall {wall:.2f} s; peak memory from the "
+          f"warmup on {peak:.1f} MiB (step graphs on) [{smi}]")
     return counts
 
 
@@ -2106,6 +2261,7 @@ def run_request_5(torch, models, smi, reset_launch_counts, launch_counts):
         wall = time.monotonic() - t0
         counts = launch_counts()
         stats = front.server.stats()
+        peak = torch.cuda.max_memory_allocated() / 2**20
     finally:
         front.close()
     audio = np.frombuffer(body[44:], dtype=np.float32)
@@ -3046,6 +3202,10 @@ def main(argv=None) -> int:
             reset_launch_counts()
             req[r] = run_request(torch, batch_size, out_dir, smi)
             per_request[r] = launch_counts()
+        # the stage loops as step graphs against the eager loops
+        t_graphs = time.monotonic()
+        check_graph_loops(torch, smi, reset_launch_counts, launch_counts)
+        print(f"  graph-loop phase wall {time.monotonic() - t_graphs:.1f} s")
         reset_launch_counts()
         run_request_3(torch, smi)
         per_request[3] = launch_counts()

@@ -31,6 +31,15 @@ after a warmup; and device busy: the kernel times of one more call
 under ``torch.profiler``) and GB/s against the card's 3.35 TB/s.
 Each call's cache is a copy of the primed one, made outside the timing.
 
+``loop`` (each plane and B): the sampling loop itself
+(``ar_stage._generate``, ``steps`` steps from the primed cache, the
+stage's uniforms) run eagerly and as a CUDA graph of one step
+(``pipeline/graphs.py``), in turns: eager, graph, graph, eager, each
+turn timed as above (the first graph turn's warmup call captures). It
+prints wall and busy ms/step of every turn, whether the two loops gave
+the same tokens, and the launches a step of each; on the CPU the eager
+loop alone (graphs exist only for CUDA tensors).
+
 ``--sampler`` (the JAX script's ``bench_sampler_paths``): on the
 bf16-weights plane at B = 1, the plain generate loop
 (``ar_stage._generate``: ``decode_step`` and the plain sampler, reading
@@ -193,6 +202,64 @@ def _plane(params, cfg, b: int, plane: str, steps: int, device, reps: int,
     return out
 
 
+# the loop A/B's turns: eager, graph, graph, eager (True: eager)
+LOOP_TURNS = (True, False, False, True)
+
+
+def loop_ab(params, cfg, b: int, steps: int, device, reps: int,
+            card: str, compute_dtype, label: str = "") -> dict:
+    """The sampling loop at batch ``b`` on the cast tree ``params`` (on
+    the plane of ``compute_dtype``), eager against a step graph in turns
+    (module docstring). Returns
+    {"steps", "eager", "graph" (None on the CPU), "same_tokens"}; each
+    loop's entry has its best ``ms_per_step`` and ``busy_ms_per_step``,
+    ``turns`` ([wall, busy] ms/step a turn) and ``launches_per_step``."""
+    import torch
+
+    from tortoise_tpu_torch.models import ar
+    from tortoise_tpu_torch.ops.cuda import launch_counts
+    from tortoise_tpu_torch.pipeline import ar_stage, common
+
+    cd = compute_dtype
+    cfg = dataclasses.replace(cfg, max_decode_steps=steps)
+    logits, cache = ar.prefill(params, cfg, *_prompt(
+        cfg, b, np.random.default_rng(0), device), cd)
+    first = torch.ones((b, TEXT_BUCKET + 2), dtype=torch.long, device=device)
+    toks = {}
+
+    def gen(eager):
+        t, _ = ar_stage._generate(params, cfg, logits, first, _fresh(cache),
+                                  common.make_generator(0, device), cd,
+                                  ar.DEFAULT_SAMPLER, eager=eager)
+        toks.setdefault(eager, []).append(t)
+        return t
+
+    out = {"steps": steps, "eager": None, "graph": None}
+    turns = LOOP_TURNS if device.type == "cuda" else LOOP_TURNS[:1]
+    for eager in turns:
+        name = "eager" if eager else "graph"
+        before, done = launch_counts(), len(toks.get(eager, []))
+        with torch.inference_mode():
+            t = U.timed(lambda: gen(eager), device, reps)
+        n = toks[eager][-1].shape[1] - 1  # decode steps a call
+        calls = len(toks[eager]) - done
+        ent = out[name] or {"turns": []}
+        ent["turns"].append([t["ms"] / n, None if t["busy_ms"] is None
+                             else t["busy_ms"] / n])
+        ent["launches_per_step"] = {
+            k: v / (calls * n) for k, v in U.launch_delta(before).items()}
+        out[name] = ent
+        print(f"B={b} {label} loop {name:5s}: {U.fmt(t, n, 'ms/step')} over "
+              f"{n} steps [{card}]", flush=True)
+    for ent in (out["eager"], out["graph"]):
+        if ent is not None:
+            best = min(ent["turns"])
+            ent.update(ms_per_step=best[0], busy_ms_per_step=best[1])
+    out["same_tokens"] = all(torch.equal(t, toks[True][0])
+                             for ts in toks.values() for t in ts)
+    return out
+
+
 def sampler_paths(params, cfg, steps: int, device, reps: int,
                   card: str) -> dict:
     """The plain generate loop against the sampler alone, B = 1, on the
@@ -260,6 +327,10 @@ def run(ar_params, cfg, steps: int = 64, device=None, reps: int = 3,
             ar_params, torch.bfloat16, int8=plane == "int8", device=device)
         out[plane] = {str(b): _plane(params, cfg, b, plane, steps, device,
                                      reps, card) for b in batches}
+        for b in batches:
+            out[plane][str(b)]["loop"] = loop_ab(
+                params, cfg, b, steps, device, reps, card, torch.bfloat16,
+                plane)
         if sampler and plane == "bf16":
             out["sampler"] = sampler_paths(params, cfg, steps, device, reps,
                                            card)

@@ -19,6 +19,14 @@ device-busy time (the sum of its kernel times) and that over the best
 loop wall, the loop's device-busy share. ``--profile`` adds device time
 by kernel of a 2-step loop (trace in ``chiprun_out/``).
 
+``loop``: the 80-step loop run eagerly and as a CUDA graph of one step
+(``pipeline/graphs.py``), in turns: eager, graph, graph, eager. Each
+turn makes one warmup call (the first graph turn's captures), one call
+timed on the host clock between two synchronisations (wall) and one
+under ``torch.profiler`` (busy); it prints both a step, whether the two
+loops gave the same mel bit for bit, and the launches a step of each.
+On the CPU the eager loop alone (graphs exist only for CUDA tensors).
+
 The last line is ``{"diffstage": {...}}`` with every number printed and
 the launch counts since the start.
 """
@@ -41,18 +49,27 @@ SMALL_LATENTS = 32
 PROFILE_STEPS = 2
 
 
+# the planes a Stage runs: (compute dtype name, int8 weights)
+PLANES = {"int8": ("bfloat16", True), "bf16": ("bfloat16", False),
+          "f32": (None, False)}
+
+
 class Stage:
     """The stage's inputs for one utterance of ``n_lat`` latents, built
-    as ``diffusion_batch_device`` builds them."""
+    as ``diffusion_batch_device`` builds them, on ``plane`` (``PLANES``;
+    the bench's bf16 + int8 by default)."""
 
-    def __init__(self, params, cfg, latents: np.ndarray, device):
+    def __init__(self, params, cfg, latents: np.ndarray, device,
+                 plane: str = "int8"):
         import torch
 
         from tortoise_tpu_torch.config import mel_length_for_latents
         from tortoise_tpu_torch.pipeline import diffusion_stage as DS
 
         self.cfg, self.device = cfg, device
-        self.params = DS._prepare_params(params, True, device)
+        cd, int8 = PLANES[plane]
+        self.compute_dtype = None if cd is None else getattr(torch, cd)
+        self.params = DS._prepare_params(params, int8, device)
         n_lat = latents.shape[0]
         out_len = mel_length_for_latents(n_lat)
         self.lat_lens = np.asarray([n_lat], np.int64)
@@ -77,7 +94,7 @@ class Stage:
             self.params, self.cfg, self.lat_in, self.lat_buckets,
             self.out_pad, torch.as_tensor(self.lat_lens, device=dev),
             torch.as_tensor(self.out_lens, device=dev), self.lat_mask,
-            torch.bfloat16)
+            self.compute_dtype)
         return torch.cat([cond, uncond], dim=0)
 
     def noise(self, seed: int):
@@ -99,14 +116,13 @@ class Stage:
             x = torch.where(self.out_mask[:, None, :], x, 0.0)
         return x, draw
 
-    def loop(self, code_emb2, x, draw, cfg=None):
-        import torch
-
+    def loop(self, code_emb2, x, draw, cfg=None, eager=False):
         from tortoise_tpu_torch.pipeline import diffusion_stage as DS
 
         return DS._denoise_loop(self.params, cfg or self.cfg, self.sched,
                                 code_emb2, x, self.out_buckets,
-                                self.out_mask, draw, torch.bfloat16, True)
+                                self.out_mask, draw, self.compute_dtype,
+                                True, eager=eager)
 
 
 def one_run(stage: Stage, seed: int) -> tuple:
@@ -133,6 +149,55 @@ def one_run(stage: Stage, seed: int) -> tuple:
     return ts, mel
 
 
+# the loop A/B's turns: eager, graph, graph, eager (True: eager)
+LOOP_TURNS = (True, False, False, True)
+
+
+def loop_ab(stage: Stage, card: str = "") -> dict:
+    """The denoising loop eager against a step graph, in turns (module
+    docstring). Returns {"eager", "graph" (None on the CPU), "same_mel"};
+    each loop's entry has its best ``ms_per_step`` and
+    ``busy_ms_per_step``, ``turns`` ([wall, busy] ms/step a turn) and
+    ``launches_per_step``."""
+    from tortoise_tpu_torch.ops.cuda import launch_counts
+    from tortoise_tpu_torch.pipeline.common import sync
+
+    dev, n = stage.device, stage.cfg.n_sample_timesteps
+    code = stage.code_emb()
+    out, mels = {"eager": None, "graph": None}, {}
+    turns = LOOP_TURNS if dev.type == "cuda" else LOOP_TURNS[:1]
+    for eager in turns:
+        name = "eager" if eager else "graph"
+
+        def loop():
+            x, draw = stage.noise(0)
+            return stage.loop(code, x, draw, eager=eager)
+
+        before = launch_counts()
+        loop()
+        sync(dev)
+        t0 = time.monotonic()
+        mels.setdefault(eager, []).append(loop())
+        sync(dev)
+        wall = (time.monotonic() - t0) * 1e3 / n
+        busy = U.busy_ms(loop) / n if dev.type == "cuda" else None
+        ent = out[name] or {"turns": []}
+        ent["turns"].append([wall, busy])
+        ent["launches_per_step"] = {
+            k: v / (3 * n) for k, v in U.launch_delta(before).items()}
+        out[name] = ent
+        print(f"loop {name:5s}: {wall:.3f} ms/step"
+              + ("" if busy is None else f" (device busy {busy:.3f} ms/step, "
+                 f"share {busy / wall:.3f})") + f" [{card}]", flush=True)
+    for ent in (out["eager"], out["graph"]):
+        if ent is not None:
+            best = min(ent["turns"])
+            ent.update(ms_per_step=best[0], busy_ms_per_step=best[1])
+    out["same_mel"] = all(m.equal(mels[True][0])
+                          for ms in mels.values() for m in ms)
+    return out
+
+
 def run(params, cfg, latents: np.ndarray, device, runs: int = 5,
         profile: bool = False, card: str = "") -> dict:
     """The stage split on ``params`` (the host or device f32 tree; the
@@ -157,6 +222,7 @@ def run(params, cfg, latents: np.ndarray, device, runs: int = 5,
                 best = ts
         out = dict(best or ts, latents=int(latents.shape[0]),
                    out_pad=stage.out_pad, steps=n, runs=runs)
+        out["loop"] = loop_ab(stage, card)
         if device.type == "cuda":
             code = stage.code_emb()
 

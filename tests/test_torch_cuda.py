@@ -844,3 +844,109 @@ def test_server_batch_on_card_launches_kernels_a_and_b(cuda_device):
     assert (st["batches"], st["rows"], st["padded_rows"]) == (1, 3, 1)
     for r in results:
         assert len(r.audio) > 0 and np.isfinite(r.audio).all()
+
+
+def _graph_vs_eager(fn, seed_runs=(0, 1)):
+    """fn(eager) -> (outputs tuple, launch counts), run eager, graph,
+    graph, eager (the second graph run replays the cached entry)."""
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    runs = []
+    for eager in (True, False, False, True):
+        reset_launch_counts()
+        out = fn(eager)
+        torch.cuda.synchronize()
+        runs.append((out, launch_counts()))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", ["bf16_weights", "bf16_int8"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_generate_graph_replays_the_eager_loop_on_card(cuda_device, plane,
+                                                       b):
+    """The AR sampling loop as one captured step (the plain step on the
+    bf16-weights plane, kernel A's step on the int8 plane) against the
+    eager loop: the same tokens and lengths, the same launch counts."""
+    from tortoise_tpu_torch.config import tiny_ar_config as port_ar_config
+    from tortoise_tpu_torch.models import ar
+    from tortoise_tpu_torch.pipeline import ar_stage, common, graphs
+
+    cfg = dataclasses.replace(port_ar_config(), d_model=128, n_head=2,
+                              d_mlp=256, n_mel_vocab=300, fused_decode=True,
+                              max_decode_steps=40, cache_len=128)
+    host = random_ar_params(cfg, seed=4)
+    params = ar_stage.cast_matmul_weights(host, torch.bfloat16,
+                                          plane == "bf16_int8", cuda_device)
+    rng = np.random.default_rng(b)
+    ids = torch.tensor(rng.integers(0, cfg.n_text_vocab, (b, 12)),
+                       device=cuda_device)
+    valid = torch.ones((b, 12), dtype=torch.bool, device=cuda_device)
+    voice = torch.tensor(rng.normal(0, .5, 128).astype(np.float32),
+                         device=cuda_device)
+    logits, cache = ar.prefill(params, cfg, ids, valid, voice,
+                               torch.bfloat16)
+    first = torch.ones((b, 14), dtype=torch.long, device=cuda_device)
+    graphs.clear()
+
+    def run(eager):
+        c = ar.KVCache(cache.k.clone(), cache.v.clone(), cache.valid.clone(),
+                       cache.length)
+        return ar_stage._generate(params, cfg, logits, first, c,
+                                  common.make_generator(5, cuda_device),
+                                  torch.bfloat16, ar.DEFAULT_SAMPLER,
+                                  eager=eager)
+
+    runs = _graph_vs_eager(run)
+    (want_t, want_l), want_c = runs[0]
+    assert want_t.shape[1] > 8
+    for (t, l), c in runs[1:]:
+        assert torch.equal(t, want_t) and torch.equal(l, want_l)
+        assert c == want_c
+    assert (want_c["decode_trunk"] > 0) == (plane == "bf16_int8")
+    assert len(graphs.entries()) == 1
+    graphs.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+def test_denoise_graph_replays_the_eager_loop_on_card(cuda_device, b):
+    """The denoising loop as one captured step on kernel B's route (2
+    heads of 64, bf16 + int8, ragged rows) against the eager loop: the
+    same mel bit for bit, the same launch counts."""
+    from tortoise_tpu_torch.config import tiny_diffusion_config
+    from tortoise_tpu_torch.io.checkpoint import random_diffusion_params
+    from tortoise_tpu_torch.pipeline import common, graphs
+    from tortoise_tpu_torch.pipeline import diffusion_stage as DS
+
+    cfg = dataclasses.replace(tiny_diffusion_config(), d_model=128,
+                              n_head=2, timestep_dim=128, use_flash=True,
+                              n_sample_timesteps=8)
+    params = DS._prepare_params(random_diffusion_params(cfg, 2), True,
+                                cuda_device)
+    rng = np.random.default_rng(b)
+    t = 96
+    code = torch.tensor(rng.normal(0, .5, (2 * b, 128, t)).astype(np.float32),
+                        device=cuda_device)
+    x0 = torch.tensor(rng.normal(0, 1, (b, cfg.n_mel, t)).astype(np.float32),
+                      device=cuda_device)
+    lens = torch.tensor([t - 7 * i for i in range(b)], device=cuda_device)
+    mask = torch.arange(t, device=cuda_device)[None, :] < lens[:, None]
+    sched = DS.schedule_arrays(cfg, cuda_device)
+    graphs.clear()
+
+    def run(eager):
+        gen = common.make_generator(3, cuda_device)
+        return DS._denoise_loop(
+            params, cfg, sched, code, x0, None, mask,
+            lambda: DS.draw_normal(gen, tuple(x0.shape), cuda_device),
+            torch.bfloat16, True, eager=eager)
+
+    runs = _graph_vs_eager(run)
+    want, want_c = runs[0]
+    assert want_c["flash_attention_packed"] == 8 * 3  # 3 attention layers
+    for got, c in runs[1:]:
+        assert torch.equal(got, want)
+        assert c == want_c
+    assert len(graphs.entries()) == 1
+    graphs.clear()

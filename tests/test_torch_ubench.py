@@ -17,6 +17,9 @@ JAX package.
   the tiny config, on both planes.
 - The diffusion stage split's loop output against
   ``diffusion_batch_device``'s mel for the same seed: equal.
+- The loop A/B fields of the decode and diffstage scripts (eager against
+  a step graph, in turns): on the CPU the eager loop alone, one turn,
+  no busy time, and every turn's tokens or mel equal.
 
 The scripts are loaded by path, read-only; the JAX package is called
 on the CPU.
@@ -272,3 +275,25 @@ def test_prefill_crossover():
     assert cross([(5, 3.0, 2.0), (10, 1.0, 2.0), (100, 1.0, 2.0)]) == 10
     assert cross([(5, 1.0, 2.0), (10, 3.0, 2.0), (100, 1.0, 2.0)]) == 100
     assert cross([(5, 1.0, 2.0), (100, 3.0, 2.0)]) is None
+
+
+@pytest.mark.parametrize("name,argv", [("decode", ["4"]), ("diffstage", [])])
+def test_loop_ab_fields_on_the_cpu(name, argv, capsys):
+    """``loop``: turns eager, graph, graph, eager on a card; on the CPU
+    only the eager loop exists, so one eager turn and no graph entry."""
+    mod = load(name)
+    assert mod.LOOP_TURNS == (True, False, False, True)
+    result = mod.main(argv + ["--device", "cpu", "--small"])
+    if name == "decode":
+        loops = [result[p][b]["loop"] for p in ("int8", "bf16")
+                 for b in result[p]]
+        same = "same_tokens"
+    else:
+        loops, same = [result["loop"]], "same_mel"
+    assert loops
+    for lp in loops:
+        assert lp["graph"] is None and lp[same] is True
+        eager = lp["eager"]
+        assert len(eager["turns"]) == 1 and eager["turns"][0][1] is None
+        assert eager["ms_per_step"] > 0 and eager["busy_ms_per_step"] is None
+        assert eager["launches_per_step"] == {}

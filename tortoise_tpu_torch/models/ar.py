@@ -10,7 +10,12 @@ Same architecture and public layouts as the JAX package:
   MLP -> residual;
 - head: LN -> ln_f affine -> bare second LN -> lm_head.0 affine ->
   lm_head.1 (the double norm is part of the exported model);
-- KV cache (L, B, C, H*Dh), updated in place one slot per step.
+- KV cache (L, B, C, H*Dh), updated in place one slot per step. A step
+  writes its row and reads its mel position at DEVICE indices (the
+  cache's ``pos`` where a step graph set one, and a ``step`` that may be
+  a (1,) long device tensor, as the JAX loops carry a traced step), so
+  one captured step can be replayed for every step of a loop
+  (``pipeline.graphs``).
 
 Tensor parallelism (``tp``, an ``AxisGroup`` on the mesh's "tp" axis,
 with the tree from ``parallel.shard_tree``): each rank holds H/tp heads
@@ -30,7 +35,7 @@ plain versions. The f32 parity plane never dispatches to a kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,6 +60,9 @@ class KVCache:
     v: torch.Tensor      # (L, B, C, H*Dh)
     valid: torch.Tensor  # (B, C) bool — which slots hold real keys
     length: int          # next write offset
+    # the same offset as a (1,) long device tensor, advanced in place by
+    # each write (a step graph's cache has one; None: built from length)
+    pos: Optional[torch.Tensor] = None
 
 
 def _row_parallel(x, w, compute_dtype, out_dtype, tp):
@@ -233,25 +241,45 @@ def can_fuse_sampling(params, cfg: ARConfig, compute_dtype, batch: int,
             and params.get("head_pack") is not None)
 
 
+def _step_index(step, device) -> torch.Tensor:
+    """``step`` (an int, or already a (1,) long device tensor) as a (1,)
+    long tensor on ``device``."""
+    if isinstance(step, torch.Tensor):
+        return step
+    return torch.full((1,), step, dtype=torch.long, device=device)
+
+
 def _write_rows(cache: KVCache, k_rows, v_rows) -> KVCache:
-    """Write one step's (L, B, H*Dh) rows at slot cache.length, in place."""
-    n = cache.length
-    cache.k[:, :, n] = k_rows.to(cache.k.dtype)
-    cache.v[:, :, n] = v_rows.to(cache.v.dtype)
-    cache.valid[:, n] = True
-    return KVCache(cache.k, cache.v, cache.valid, n + 1)
+    """Write one step's (L, B, H*Dh) rows in place at the device index
+    ``cache.pos`` (advanced in place) or, without one, at slot
+    cache.length."""
+    slot = _step_index(cache.length if cache.pos is None else cache.pos,
+                       cache.k.device)
+    cache.k.index_copy_(2, slot, k_rows.to(cache.k.dtype)[:, :, None])
+    cache.v.index_copy_(2, slot, v_rows.to(cache.v.dtype)[:, :, None])
+    cache.valid.index_fill_(1, slot, True)
+    if cache.pos is not None:
+        cache.pos.add_(1)
+    return KVCache(cache.k, cache.v, cache.valid, cache.length + 1,
+                   cache.pos)
 
 
-def _embed_step(params, tokens, step: int):
-    return params["mel_emb"][tokens.long()] + params["mel_pos"][step + 2]
+def _embed_step(params, tokens, step):
+    """The tokens' mel embeddings plus mel position ``step`` + 2, read at
+    a device index (``step`` an int or a (1,) long device tensor)."""
+    pos = _step_index(step, tokens.device) + 2
+    return (params["mel_emb"][tokens.long()]
+            + params["mel_pos"].index_select(0, pos))
 
 
 def decode_step(params, cfg: ARConfig, cache: KVCache, tokens, step: int,
                 compute_dtype=None, qkv_f16: bool = False, tp=None,
                 split_rows=None) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: tokens (B,) sampled ids, ``step`` the 0-based
-    decode index. Returns (logits (B, V), cache) — the cache tensors are
-    updated in place (slot cache.length) and returned in a new KVCache.
+    decode index (an int, or a (1,) long device tensor as a step graph
+    carries it). Returns (logits (B, V), cache) — the cache tensors are
+    updated in place (slot ``cache.pos``, else cache.length) and returned
+    in a new KVCache.
     ``qkv_f16``: the reference's f16 round trip of the qkv activations
     (kernel A has none, so it stays off). ``split_rows``: kernel A's
     ``split_rows`` (a dp rank's global batch)."""

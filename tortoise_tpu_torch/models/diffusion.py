@@ -272,14 +272,17 @@ def denoise(params, cfg: DiffusionConfig, x, code_emb, t_orig, out_buckets,
             mask=None, compute_dtype=None, tp=None):
     """One denoiser evaluation. x (B, 100, T) noisy mel; code_emb
     (B, 1024, T) — cond/uncond stacked as a batch of 2 for CFG; t_orig
-    the ORIGINAL timestep id. Returns (B, 200, T) float32."""
+    the ORIGINAL timestep id: a number, or a (1,) or (B,) tensor on the
+    device (the denoising loop reads it from its schedule table at the
+    step's device index). Returns (B, 200, T) float32."""
     from tortoise_tpu_torch.pipeline.schedule import timestep_embedding
 
     if mask is not None and mask.shape[0] not in (1, x.shape[0]):
         mask = mask.repeat(x.shape[0] // mask.shape[0], 1)
-    t_emb = timestep_embedding(
-        torch.full((x.shape[0],), float(t_orig), device=x.device),
-        cfg.timestep_dim, cfg.timestep_max_period, device=x.device)
+    t = torch.as_tensor(t_orig, device=x.device).to(torch.float32)
+    t_emb = timestep_embedding(t.reshape(-1).expand(x.shape[0]),
+                               cfg.timestep_dim, cfg.timestep_max_period,
+                               device=x.device)
     time_emb = time_mlp(params, t_emb, compute_dtype)
     if compute_dtype is not None:
         x = x.to(compute_dtype)

@@ -28,3 +28,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` ({kernel name: n}, n may be negative) to the
+    wrappers' counters: a step graph's replay launches without running
+    the wrappers, so it adds the launches its capture recorded."""
+    wrappers = _wrappers()
+    for k, n in counts.items():
+        wrappers[k].launches += n

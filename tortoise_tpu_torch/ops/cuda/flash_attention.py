@@ -76,11 +76,13 @@ def _additive_mask(kv_valid: Optional[torch.Tensor]):
     return torch.where(kv_valid, 0.0, NEG_INF).to(torch.float32)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _toeplitz_ids(tq: int, tkv: int, n_buckets: int, max_distance: int,
                   device: torch.device) -> torch.Tensor:
     # built once per length and device: a pageable host-to-device copy
-    # would stall the stream on every attention call
+    # would stall the stream on every attention call. Never dropped
+    # (a few KB a length): a captured step graph (pipeline/graphs.py)
+    # reads it by address
     import numpy as np
 
     return torch.as_tensor(bucket_of_delta(np.arange(-(tq - 1), tkv),

@@ -14,6 +14,11 @@ Two sampler planes:
   ``tortoise_tpu_torch.rng.ReferenceRng``, reproducing the reference's seeded
   decision stream — the plane the port is held to token for token.
 
+On the card without a mesh both planes' loops replay a CUDA graph of one
+step (``pipeline.graphs``), as the JAX package runs its loop as one
+program on the device: the step reads its decode index from a device
+counter (``_sampling_step``, ``_decode_only_step``).
+
 Sequence post-processing (apply_padding, trim_keep_lengths, trim_latents)
 and the text-bucket rules are pure-Python copies of the JAX package's.
 
@@ -32,6 +37,7 @@ C runs on each rank's rows and heads when they pass
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -46,7 +52,7 @@ from tortoise_tpu_torch.ops.basic import quantize_cols, quantize_cols_host
 from tortoise_tpu_torch.parallel.mesh import axis_group
 from tortoise_tpu_torch.parallel.sharding import ar_param_specs
 from tortoise_tpu_torch.params import tree_to_torch
-from tortoise_tpu_torch.pipeline import common
+from tortoise_tpu_torch.pipeline import common, graphs
 from tortoise_tpu_torch.pipeline.common import (
     cached_cast,
     draw_rows,
@@ -261,9 +267,81 @@ def _first_stop(flags, dp):
     return int(hit[0]) if hit.numel() else None
 
 
+def _sampling_buffers(cache, b: int, max_steps: int, dev) -> dict:
+    """The sampling loop's state, worked on in place by
+    ``_sampling_step``: ``cache`` (a step graph's has a device write index
+    ``pos``), ``step`` (the next decode index), ``tok`` (the last sampled
+    ids, the next step's ``prev``), ``u`` (the step's uniforms),
+    ``toks`` (B, max_steps) (column n: the n-th sampled ids),
+    ``lengths``, ``finished`` and ``flags`` (flags[n]: every row sampled
+    stop in column n)."""
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {"cache": cache, "step": z((1,), torch.long),
+            "tok": z((b,), torch.int32), "u": z((b, 1), torch.float32),
+            "toks": z((b, max_steps), torch.int32),
+            "lengths": z((b,), torch.int32), "finished": z((b,), torch.bool),
+            "flags": z((max_steps,), torch.int32)}
+
+
+def _static_cache(cache) -> "ar.KVCache":
+    """A step graph's own KV cache, shaped as ``cache``, with a device
+    write index (its contents are copied in by ``_start``)."""
+    return ar.KVCache(torch.empty_like(cache.k), torch.empty_like(cache.v),
+                      torch.empty_like(cache.valid), cache.length,
+                      torch.zeros((1,), dtype=torch.long,
+                                  device=cache.k.device))
+
+
+def _start(bufs, cache) -> None:
+    """Start a loop's ``bufs`` from the primed ``cache`` at decode index
+    0: a step graph's own cache gets the contents copied in."""
+    static = bufs["cache"]
+    if static is not cache:
+        static.k.copy_(cache.k)
+        static.v.copy_(cache.v)
+        static.valid.copy_(cache.valid)
+        static.pos.fill_(cache.length)
+        bufs["cache"] = ar.KVCache(static.k, static.v, static.valid,
+                                   cache.length, static.pos)
+    bufs["step"].zero_()
+
+
+def _sampling_step(params, cfg: ARConfig, compute_dtype, sampler, fuse,
+                   qkv_f16, tp, split, bufs) -> None:
+    """One step of the sampling loop on ``bufs`` (``_sampling_buffers``),
+    in place: the decode step and the sampler (kernel A's
+    ``decode_sample_step`` when ``fuse``) at the device index
+    ``bufs["step"]``, then the row lengths, the stop flags and the
+    token column. The unit a step graph holds."""
+    prev, step = bufs["tok"], bufs["step"]
+    if fuse:
+        tok, cache = ar.decode_sample_step(params, cfg, bufs["cache"], prev,
+                                           step, bufs["u"], compute_dtype,
+                                           sampler=sampler, split_rows=split)
+    else:
+        logits, cache = ar.decode_step(params, cfg, bufs["cache"], prev,
+                                       step, compute_dtype, qkv_f16, tp=tp,
+                                       split_rows=split)
+        probs, ids = S.process_logits_topk(logits, prev[:, None].long(),
+                                           *sampler)
+        tok = S.sample_from_topk_u(bufs["u"], probs, ids)
+    bufs["cache"] = cache
+    stop = tok == cfg.stop_mel_token
+    col = step + 1
+    lengths, finished = bufs["lengths"], bufs["finished"]
+    lengths.copy_(torch.where(finished, lengths, lengths + 1))
+    finished.logical_or_(stop)
+    bufs["flags"].index_copy_(0, col, stop.all().to(torch.int32).reshape(1))
+    bufs["toks"].index_copy_(1, col, tok.to(torch.int32)[:, None])
+    prev.copy_(tok)
+    step.add_(1)
+
+
 def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
               cache, generator, compute_dtype, sampler, rows=None, dp=None,
-              tp=None, qkv_f16=False):
+              tp=None, qkv_f16=False, mesh=None, eager=False):
     """On-device sampling loop over this rank's rows. Returns (tokens
     (B, steps) int32, lengths (B,)) on the device: lengths[b] counts ids
     appended to sequence b (stop included) under the reference's
@@ -272,15 +350,19 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
     draw per step, the first one included, like the JAX package's key
     chain (ar_stage.py:299-325); ``rows`` picks this rank's part of it.
 
-    Each step records its all-rows-stopped flag on the device; the host
-    reads the flags of the last ``STOP_CHECK_STEPS`` steps at once (a
-    read waits for the device, so reading each step would keep the
-    host's enqueue from overlapping the step before), after a MIN over
-    ``dp``. Steps run past the stop step are dropped (their draws come
-    after every kept one)."""
+    Each step is ``_sampling_step``: on a card without a ``mesh`` the
+    replay of one captured step (``pipeline.graphs``; ``eager`` runs the
+    eager loop there, for A/B runs), else the step run eagerly. It
+    records its all-rows-stopped flag on the device; the host reads the
+    flags of the last ``STOP_CHECK_STEPS`` steps at once (a read waits
+    for the device, so reading each step would keep the host's enqueue
+    from overlapping the step before), after a MIN over ``dp``. Steps
+    run past the stop step are dropped (their draws come after every
+    kept one)."""
     b = first_logits.shape[0]
     dev = first_logits.device
     stop = cfg.stop_mel_token
+    n = cfg.max_decode_steps
     rows = rows or slice(0, b)
     n_global = b if dp is None else b * dp.size
     # kernel A splits its work as for the whole batch: a row's bits do
@@ -293,48 +375,43 @@ def _generate(params, cfg: ARConfig, first_logits, first_penalty_ids,
     probs, ids = S.process_logits_topk(first_logits, first_penalty_ids,
                                        *sampler)
     tok = S.sample_from_topk_u(draw_u(), probs, ids)
-    tokens = [tok]
-    finished = tok == stop
-    lengths = torch.ones((b,), dtype=torch.int32, device=dev)
     # false under tp (a tp rank's params hold no head pack) and with
     # qkv_f16 (kernel A has no f16 round trip), as in the JAX package
     fuse = not qkv_f16 and ar.can_fuse_sampling(params, cfg, compute_dtype,
                                                 b, sampler)
-    # flags[n - 1]: every row sampled stop in the step that made n tokens
-    flags = torch.zeros((cfg.max_decode_steps,), dtype=torch.int32,
-                        device=dev)
-    flags[0] = (tok == stop).all()
-    end, checked, step = None, 0, 1
-    while step < cfg.max_decode_steps:
-        if step % STOP_CHECK_STEPS == 1:
-            hit = _first_stop(flags[checked:step], dp)
-            if hit is not None:
-                end = checked + hit + 1
-                break
-            checked = step
-        prev = tok
-        u = draw_u()
-        if fuse:
-            tok, cache = ar.decode_sample_step(params, cfg, cache, prev,
-                                               step - 1, u, compute_dtype,
-                                               sampler=sampler,
-                                               split_rows=split)
-        else:
-            logits, cache = ar.decode_step(params, cfg, cache, prev,
-                                           step - 1, compute_dtype, qkv_f16,
-                                           tp=tp, split_rows=split)
-            probs, ids = S.process_logits_topk(logits, prev[:, None].long(),
-                                               *sampler)
-            tok = S.sample_from_topk_u(u, probs, ids)
-        tokens.append(tok)
-        lengths = torch.where(finished, lengths, lengths + 1)
-        finished = finished | (tok == stop)
-        flags[step] = (tok == stop).all()
-        step += 1
-    if end is None:
-        hit = _first_stop(flags[checked:step], dp)
-        end = step if hit is None else checked + hit + 1
-    return torch.stack(tokens[:end], dim=1), lengths
+    step_fn = functools.partial(_sampling_step, params, cfg, compute_dtype,
+                                sampler, fuse, qkv_f16, tp, split)
+
+    def make_bufs(static):
+        return _sampling_buffers(_static_cache(cache) if static else cache,
+                                 b, n, dev)
+
+    with graphs.stepping(
+            not eager and graphs.use_graphs(dev, mesh),
+            ("ar", cfg, str(compute_dtype), sampler, fuse, qkv_f16, b),
+            params, make_bufs, step_fn) as (bufs, run):
+        _start(bufs, cache)
+        first_stop = tok == stop
+        bufs["tok"].copy_(tok)
+        bufs["toks"][:, 0] = tok
+        bufs["lengths"].fill_(1)
+        bufs["finished"].copy_(first_stop)
+        bufs["flags"][0] = first_stop.all()
+        end, checked, step = None, 0, 1
+        while step < n:
+            if step % STOP_CHECK_STEPS == 1:
+                hit = _first_stop(bufs["flags"][checked:step], dp)
+                if hit is not None:
+                    end = checked + hit + 1
+                    break
+                checked = step
+            bufs["u"].copy_(draw_u())
+            run()
+            step += 1
+        if end is None:
+            hit = _first_stop(bufs["flags"][checked:step], dp)
+            end = step if hit is None else checked + hit + 1
+        return bufs["toks"][:, :end].clone(), bufs["lengths"].clone()
 
 
 @torch.inference_mode()
@@ -402,7 +479,8 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     first_ids[:, -1] = cfg.start_mel_token
     gen = common.make_generator(seed, device)
     toks, lengths = _generate(params, cfg, logits, first_ids, cache, gen,
-                              compute_dtype, sampler, rows, dp, tp, qkv_f16)
+                              compute_dtype, sampler, rows, dp, tp, qkv_f16,
+                              mesh)
     if dp is not None:
         toks, lengths = dp.all_gather(toks), dp.all_gather(lengths)
     toks, lengths = toks.cpu().numpy(), lengths.cpu().numpy()
@@ -424,6 +502,32 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
     if return_device_latents:
         return latents, trim_keep_lengths(padded, cfg), padded
     return trim_latents(latents.float().cpu().numpy(), padded, cfg), padded
+
+
+def _decode_buffers(cache, logits) -> dict:
+    """The reference plane's decode state, worked on in place by
+    ``_decode_only_step``: ``cache``, ``step`` (the next decode index),
+    ``tok`` (the ids the host sampled) and ``logits`` (the step's
+    output)."""
+    dev = logits.device
+    return {"cache": cache,
+            "step": torch.zeros((1,), dtype=torch.long, device=dev),
+            "tok": torch.zeros((logits.shape[0],), dtype=torch.long,
+                               device=dev),
+            "logits": torch.empty_like(logits)}
+
+
+def _decode_only_step(params, cfg: ARConfig, compute_dtype, qkv_f16,
+                      bufs) -> None:
+    """One decode step of the reference plane on ``bufs``
+    (``_decode_buffers``), in place: the logits of ``bufs["tok"]`` at the
+    device index ``bufs["step"]``; the host samples from them (the unit
+    its step graph holds)."""
+    logits, bufs["cache"] = ar.decode_step(params, cfg, bufs["cache"],
+                                           bufs["tok"], bufs["step"],
+                                           compute_dtype, qkv_f16)
+    bufs["logits"].copy_(logits)
+    bufs["step"].add_(1)
 
 
 @torch.inference_mode()
@@ -487,22 +591,35 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
     prev_ids = [first_ids] * batch_size
     sequences = [[] for _ in range(batch_size)]
     sp = normalize_sampler(sampler_params)
+    step_fn = functools.partial(_decode_only_step, params, cfg,
+                                compute_dtype, qkv_f16)
+
+    def make_bufs(static):
+        return _decode_buffers(_static_cache(cache) if static else cache,
+                               logits)
+
     step = 0
-    while True:
-        samples = S.host_process_logits_and_sample(
-            logits.float().cpu().numpy(), prev_ids, rng, *sp)
-        for b in range(batch_size):
-            if not (sequences[b] and sequences[b][-1] == cfg.stop_mel_token):
-                sequences[b].append(int(samples[b]))
-        if all(s == cfg.stop_mel_token for s in samples):
-            break
-        if step >= cfg.max_decode_steps - 1:
-            break
-        tok = torch.as_tensor(samples, device=device)
-        logits, cache = ar.decode_step(params, cfg, cache, tok, step,
-                                       compute_dtype, qkv_f16)
-        prev_ids = [[int(s)] for s in samples]
-        step += 1
+    with graphs.stepping(
+            graphs.use_graphs(device),
+            ("ar_reference", cfg, str(compute_dtype), qkv_f16, batch_size),
+            params, make_bufs, step_fn) as (bufs, run):
+        _start(bufs, cache)
+        while True:
+            samples = S.host_process_logits_and_sample(
+                logits.float().cpu().numpy(), prev_ids, rng, *sp)
+            for b in range(batch_size):
+                if not (sequences[b] and
+                        sequences[b][-1] == cfg.stop_mel_token):
+                    sequences[b].append(int(samples[b]))
+            if all(s == cfg.stop_mel_token for s in samples):
+                break
+            if step >= cfg.max_decode_steps - 1:
+                break
+            bufs["tok"].copy_(torch.as_tensor(samples))
+            run()
+            logits = bufs["logits"]
+            prev_ids = [[int(s)] for s in samples]
+            step += 1
     if st is not None:
         st["ar_decode_loop_s"] = time.monotonic() - t_sub
         st["ar_decode_steps"] = step + 1

@@ -8,6 +8,8 @@ import warnings
 import numpy as np
 import torch
 
+from tortoise_tpu_torch.pipeline import graphs
+
 
 def round_up(n: int, m: int) -> int:
     """Round n up to a multiple of the bucket size m."""
@@ -130,10 +132,11 @@ _CAST_CACHE_MAX = 8  # distinct (tree, device, plane) entries
 
 
 def clear_cast_cache() -> None:
-    """Drop every memoized cast tree (their device memory is freed once no
-    other reference remains)."""
+    """Drop every memoized cast tree and the step graphs that read them
+    (their device memory is freed once no other reference remains)."""
     with _cast_lock:
         _cast_cache.clear()
+    graphs.clear()
 
 
 def _device_key(device) -> torch.device:
@@ -150,9 +153,10 @@ def cached_cast(params, key, fn, device):
     source tree, so its id cannot be recycled while the entry is alive.
     A bounded FIFO: past ``_CAST_CACHE_MAX`` entries the oldest goes, so
     a process that reloads models does not pin every superseded tree and
-    its device copy. The lock makes the lookup and the insert one step
-    for the server's worker and stream threads (a cast runs under it, so
-    two threads never build the same tree twice)."""
+    its device copy; the step graphs that read an evicted tree go with
+    it (``graphs.drop_tree``). The lock makes the lookup and the insert
+    one step for the server's worker and stream threads (a cast runs
+    under it, so two threads never build the same tree twice)."""
     full_key = (id(params), _device_key(device), key)
     with _cast_lock:
         ent = _cast_cache.get(full_key)
@@ -161,5 +165,6 @@ def cached_cast(params, key, fn, device):
         out = fn(params)
         _cast_cache[full_key] = (params, out)
         while len(_cast_cache) > _CAST_CACHE_MAX:
-            _cast_cache.pop(next(iter(_cast_cache)))  # dicts keep order
+            # dicts keep order
+            graphs.drop_tree(_cast_cache.pop(next(iter(_cast_cache)))[1])
         return out

@@ -16,6 +16,11 @@ package's key chain (diffusion_stage.py:181-182, 237-238);
 ``diffusion(rng=ReferenceRng)`` consumes the mt19937 stream in the
 reference's order.
 
+On the card without a mesh the loop replays a CUDA graph of one step
+(``_denoise_step``; ``pipeline.graphs``), the counterpart of the JAX
+package's ``lax.fori_loop``: the step reads t from a device counter and
+every per-step number from the schedule's device tables.
+
 Under a mesh (``mesh=``) each rank denoises its rows of the "dp" split
 (lengths, buckets and masks are those of the whole batch), drawing each
 GLOBAL noise tensor and keeping its rows, with the heads and channels of
@@ -25,6 +30,7 @@ rank returns every row.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
@@ -38,7 +44,7 @@ from tortoise_tpu_torch.ops.relpos import relative_position_buckets
 from tortoise_tpu_torch.parallel.mesh import axis_group
 from tortoise_tpu_torch.parallel.sharding import diffusion_param_specs
 from tortoise_tpu_torch.params import tree_to_torch
-from tortoise_tpu_torch.pipeline import common
+from tortoise_tpu_torch.pipeline import common, graphs
 from tortoise_tpu_torch.pipeline import schedule as ds
 from tortoise_tpu_torch.pipeline.common import (
     cached_cast,
@@ -121,15 +127,29 @@ def _progress_cuts(n: int):
 
 
 def schedule_arrays(cfg: DiffusionConfig, device="cpu") -> dict:
-    """f32 schedule vectors on the device, plus the host timestep map."""
+    """The schedule's per-step device tables, indexed by the respaced
+    step t: ``tmap`` (the original timestep ids), ``cfk`` and ``cfk1``
+    (the CFG weight k and 1 + k, each in f32 as the reference rounds
+    them), ``noisy`` (t > 0: the ancestral noise applies) and the f32
+    schedule vectors. A step reads them at a device index, so one
+    captured step serves every t."""
     s = ds.make_schedule(cfg.n_train_timesteps,
                          n_steps=cfg.n_sample_timesteps)
+    n = cfg.n_sample_timesteps
+    k = np.asarray([ds.cond_free_k(t, n, cfg.cond_free_k) for t in range(n)],
+                   np.float32)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a), device=device)
 
     def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return dev(np.asarray(a, np.float32))
 
     return {
-        "tmap": np.asarray(s.timestep_map, np.int64),
+        "tmap": dev(np.asarray(s.timestep_map, np.int64)),
+        "cfk": f32(k),
+        "cfk1": f32(np.float32(1.0) + k),
+        "noisy": dev(np.arange(n) > 0),
         "log_betas": f32(np.log(s.betas)),
         "post_logvar": f32(s.posterior_log_variance_clipped),
         "sqrt_recip_acp": f32(s.sqrt_recip_alphas_cumprod),
@@ -140,20 +160,21 @@ def schedule_arrays(cfg: DiffusionConfig, device="cpu") -> dict:
 
 
 def posterior_step(sched, cfg: DiffusionConfig, x, cond_mean, uncond_mean,
-                   var_frac, t: int, noise, variance_swap: bool = True):
+                   var_frac, t, noise, variance_swap: bool = True):
     """CFG blend, learned variance, x0 prediction, posterior mean,
-    ancestral sample (the mean alone at t = 0)."""
-    k = ds.cond_free_k(t, cfg.n_sample_timesteps, cfg.cond_free_k)
-    k1 = float(np.float32(1.0) + np.float32(k))
-    eps = k1 * cond_mean - k * uncond_mean
+    ancestral sample (the mean alone at t = 0). ``t`` is the respaced
+    step, an int or a (1,) long device index (the loop's step graph
+    carries it on the device, as the JAX loop carries a traced t); every
+    per-step number is read from ``sched``'s tables at it, and t = 0's
+    mean is selected, not multiplied, so it stays bit for bit."""
+    eps = sched["cfk1"][t] * cond_mean - sched["cfk"][t] * uncond_mean
     logvar = ds.model_log_variance(var_frac, t, sched["log_betas"],
                                    sched["post_logvar"], variance_swap)
     x0 = ds.predict_xstart_from_eps(x, eps, sched["sqrt_recip_acp"][t],
                                     sched["sqrt_recipm1_acp"][t])
     mean = ds.q_posterior_mean(x, x0, sched["coef1"][t], sched["coef2"][t])
-    if t > 0:
-        return mean + torch.exp(0.5 * logvar) * noise
-    return mean
+    return torch.where(sched["noisy"][t],
+                       mean + torch.exp(0.5 * logvar) * noise, mean)
 
 
 def _pads(lat_len: int, out_len: int, bucketed: bool):
@@ -184,29 +205,68 @@ def _buckets(length: int, cfg: DiffusionConfig, device):
         device=device)
 
 
+def _denoise_step(params, cfg, sched, compute_dtype, variance_swap, tp,
+                  bufs) -> None:
+    """One denoising step on ``bufs`` in place: the batch-of-2B CFG
+    denoiser eval of ``x`` at the respaced step ``t`` (a (1,) device
+    index), the posterior step with ``noise``, the out-mask; then t
+    counts down. The unit a step graph holds."""
+    x, t, mask = bufs["x"], bufs["t"], bufs["out_mask"]
+    b = x.shape[0]
+    out = dmodel.denoise(params, cfg, torch.cat([x, x], dim=0),
+                         bufs["code_emb2"], sched["tmap"][t],
+                         bufs["buckets"], mask, compute_dtype, tp)
+    cond_mean, var_frac = out[:b, :cfg.n_mel], out[:b, cfg.n_mel:]
+    uncond_mean = out[b:, :cfg.n_mel]
+    x_next = posterior_step(sched, cfg, x, cond_mean, uncond_mean, var_frac,
+                            t, bufs["noise"], variance_swap)
+    if mask is not None:
+        x_next = torch.where(mask[:, None, :], x_next, 0.0)
+    x.copy_(x_next)
+    t.sub_(1)
+
+
 def _denoise_loop(params, cfg, sched, code_emb2, x, out_buckets, out_mask,
                   draw_noise, compute_dtype, variance_swap, progress=None,
-                  report_at=None, tp=None):
+                  report_at=None, tp=None, mesh=None, eager=False):
     """The n denoising steps from x; ``progress(done / n)`` fires after
-    each step count in ``report_at`` (default: every step)."""
-    b = x.shape[0]
+    each step count in ``report_at`` (default: every step). Each step is
+    ``_denoise_step``: on a card without a ``mesh`` the replay of one
+    captured step (``pipeline.graphs``; ``eager`` runs the eager loop
+    there, for A/B runs), else the step run eagerly. Each step's noise
+    is drawn by ``draw_noise`` into the step's buffer before it runs."""
     n = cfg.n_sample_timesteps
-    for i in range(n):
-        t = n - 1 - i
-        out = dmodel.denoise(params, cfg, torch.cat([x, x], dim=0),
-                             code_emb2, int(sched["tmap"][t]), out_buckets,
-                             out_mask, compute_dtype, tp)
-        cond_mean, var_frac = out[:b, :cfg.n_mel], out[:b, cfg.n_mel:]
-        uncond_mean = out[b:, :cfg.n_mel]
-        x = posterior_step(sched, cfg, x, cond_mean, uncond_mean, var_frac,
-                           t, draw_noise(), variance_swap)
-        if out_mask is not None:
-            x = torch.where(out_mask[:, None, :], x, 0.0)
-        if progress is not None and (report_at is None
-                                     or i + 1 in report_at):
-            sync(x.device)  # the callback reports finished steps
-            progress((i + 1) / n)
-    return x
+    inputs = {"x": x, "code_emb2": code_emb2, "out_mask": out_mask,
+              "buckets": out_buckets}
+
+    def make_bufs(static):
+        bufs = {k: None if v is None else torch.empty_like(v)
+                for k, v in inputs.items()} if static else dict(inputs)
+        bufs["x"] = torch.empty_like(x)
+        bufs["noise"] = torch.empty_like(x)
+        bufs["t"] = torch.zeros((1,), dtype=torch.long, device=x.device)
+        return bufs
+
+    step = functools.partial(_denoise_step, params, cfg, sched,
+                             compute_dtype, variance_swap, tp)
+    key = ("diffusion", cfg, str(compute_dtype), variance_swap,
+           tuple(x.shape), tuple(code_emb2.shape), code_emb2.dtype,
+           code_emb2.stride(), out_mask is None, out_buckets is None)
+    with graphs.stepping(not eager and graphs.use_graphs(x.device, mesh),
+                         key, params, make_bufs, step, keep=(sched,)) \
+            as (bufs, run):
+        for k, v in inputs.items():
+            if bufs[k] is not v:
+                bufs[k].copy_(v)
+        bufs["t"].fill_(n - 1)
+        for i in range(n):
+            bufs["noise"].copy_(draw_noise())
+            run()
+            if progress is not None and (report_at is None
+                                         or i + 1 in report_at):
+                sync(x.device)  # the callback reports finished steps
+                progress((i + 1) / n)
+        return bufs["x"].clone()
 
 
 @torch.inference_mode()
@@ -274,7 +334,8 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
     x = _denoise_loop(params, cfg, sched, code_emb2, x,
                       _buckets(out_pad, cfg, device), out_mask, draw_noise,
                       compute_dtype, variance_swap, progress,
-                      set(_progress_cuts(cfg.n_sample_timesteps)[1:]), tp)
+                      set(_progress_cuts(cfg.n_sample_timesteps)[1:]), tp,
+                      mesh)
     if rows != slice(0, b):
         x = axis_group(mesh, "dp").all_gather(x)
     if st is not None:

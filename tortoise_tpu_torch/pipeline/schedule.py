@@ -103,10 +103,11 @@ def make_schedule(n_train: int = 4000, timestep_map=None,
     )
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def _freqs(half: int, max_period: int, device: torch.device) -> torch.Tensor:
     # uploaded once per device: a pageable host-to-device copy in every
-    # denoiser step would stall the stream
+    # denoiser step would stall the stream. Never dropped: a captured
+    # step graph (pipeline/graphs.py) reads it by address
     return torch.as_tensor(
         np.exp(-np.log(float(max_period))
                * np.arange(half, dtype=np.float64) / half).astype(np.float32),
