@@ -184,11 +184,12 @@ def test_only_the_stage_synced_pass_waits_for_the_device(monkeypatch,
     """The bench's timed passes run synthesize(stage_sync=False), which
     must not wait for the device between the stages (else checked_sync's
     2x test compares a pass with itself); the stage-synced pass does."""
-    from tortoise_tpu_torch.pipeline import ar_stage, diffusion_stage
+    from tortoise_tpu_torch.pipeline import common, diffusion_stage
     from tortoise_tpu_torch.pipeline import synthesize as syn
 
     calls = []
-    for mod in (ar_stage, diffusion_stage, syn):
+    # the stages' sub-stage spans wait through common.sync
+    for mod in (common, diffusion_stage, syn):
         monkeypatch.setattr(mod, "sync", calls.append)
     models = syn.TortoiseModels.random(0, tiny=True)
     res = syn.synthesize(models, tokens=[1, 5, 9, 0],

@@ -2,7 +2,7 @@
 CLI's option set and the three flags that reach the pipeline
 (``--no-progress``, ``--cache-dir``, ``--tokenizer-method``),
 ``python -m tortoise_tpu_torch.convert``, and ``utils/`` (progress bar,
-StageTimer, dumps, trace). Exact throughout."""
+dumps, trace). Exact throughout."""
 
 import io
 import json
@@ -171,12 +171,11 @@ def _dump_pair(root, pkg, arrays):
     return dirs
 
 
-@pytest.mark.parametrize("what", ["progress_bar", "stage_timer",
-                                  "compare_dumps"])
+@pytest.mark.parametrize("what", ["progress_bar", "compare_dumps"])
 def test_utils_match_jax(tmp_path, what):
-    """The same bytes from progress_bar, the same StageTimer summary, and
-    the same mismatches from compare_dumps (NaN, one-sided, reshaped and
-    repeated names) on directories the two packages wrote."""
+    """The same bytes from progress_bar and the same mismatches from
+    compare_dumps (NaN, one-sided, reshaped and repeated names) on
+    directories the two packages wrote."""
     if what == "progress_bar":
         for width in (50, 7):
             outs = []
@@ -186,18 +185,6 @@ def test_utils_match_jax(tmp_path, what):
                     fn(f, width=width, out=buf)
                 outs.append(buf.getvalue())
             assert outs[0] == outs[1]
-    elif what == "stage_timer":
-        summaries = []
-        for cls in (JU.StageTimer, TU.StageTimer):
-            t = cls()
-            with t.section("load"):
-                pass
-            with t.section("load"):
-                pass
-            assert set(t.times) == {"load"}
-            t.times = {"load": 0.1234, "ar": 2.0, "diffusion": 1e-4}
-            summaries.append(t.summary())
-        assert summaries[0] == summaries[1]
     else:
         x = np.arange(6, dtype=np.float32).reshape(2, 3)
         a = [("emb", x), ("attn", x), ("attn", x * 2), ("nan", x),

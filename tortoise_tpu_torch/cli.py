@@ -16,6 +16,11 @@ prefill/latent passes run kernel C once B*S^2 crosses the config's
 threshold (the latent pass does at --batch-size 8). Without ``--bf16``
 the run is the f32 parity plane: kernel B runs there on an f32 qkv, on
 the split-TF32 tensor-core body, and the AR stage runs plain PyTorch.
+
+With ``TORTOISE_TRACE_DIR`` set, the synthesis (not the model load) runs
+under ``torch.profiler``, and a Chrome trace of it goes to that
+directory: the program's ``tt.`` spans beside the kernels
+(``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -160,10 +165,8 @@ def run(argv=None):
 
     from tortoise_tpu_torch.pipeline.ar_stage import sampler_overrides
     from tortoise_tpu_torch.pipeline.common import resolve_device
-    from tortoise_tpu_torch.pipeline.synthesize import (
-        TortoiseModels,
-        synthesize,
-    )
+    from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels
+    from tortoise_tpu_torch.utils.profiling import trace
 
     device = resolve_device(args.device)
     if args.random_weights:
@@ -210,6 +213,19 @@ def run(argv=None):
     kw = dict(voice=voice, seed=args.seed, compute_dtype=compute_dtype,
               int8_weights=args.int8_weights, sampler_params=sampler_params,
               tokenizer_method=args.tokenizer_method, device=device)
+    with trace():
+        return _run_synthesis(args, models, kw)
+
+
+def _run_synthesis(args, models, kw):
+    """The synthesis the flags ask for: one batch (--messages-file), a
+    stream (--stream) or one utterance."""
+    import numpy as np
+    import torch
+
+    from tortoise_tpu_torch.pipeline.synthesize import synthesize
+
+    device = kw["device"]
     if args.messages_file:
         return _run_batch(args, models, kw)
 

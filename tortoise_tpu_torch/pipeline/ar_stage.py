@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,11 +54,12 @@ from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common, graphs
 from tortoise_tpu_torch.pipeline.common import (
     cached_cast,
+    download,
     draw_rows,
     dp_rows,
     resolve_device,
     shard_cast,
-    sync,
+    substage,
 )
 
 _MATMUL_WEIGHTS = ("attn_w", "proj_w", "fc_w", "fc_proj_w")
@@ -451,57 +451,53 @@ def autoregressive_batch(params, tokens_list, voices, cfg: ARConfig =
         text_ids[i, :len(toks)] = toks
         text_valid[i, :len(toks)] = True
     st = substage_timings
-    t_sub = time.monotonic()
-    voices = np.asarray(voices, np.float32)
-    if voices.ndim == 1:
-        voices = np.repeat(voices[None], b, axis=0)
-    voices = torch.as_tensor(voices[rows], device=device)
-    full = cast_matmul_weights(params, compute_dtype, int8_weights, device)
-    if tp is not None:  # the head pack holds the whole vocab
-        full = dict(full, head_pack=None)
-    params = shard_cast(params, ("armw", str(compute_dtype), int8_weights),
-                        full, ar_param_specs, mesh, device)
-    text_ids = torch.as_tensor(text_ids[rows], device=device)
-    text_valid = torch.as_tensor(text_valid[rows], device=device)
+    with substage("ar.cast", st, "ar_cast_s", device):
+        voices = np.asarray(voices, np.float32)
+        if voices.ndim == 1:
+            voices = np.repeat(voices[None], b, axis=0)
+        voices = torch.as_tensor(voices[rows], device=device)
+        full = cast_matmul_weights(params, compute_dtype, int8_weights,
+                                   device)
+        if tp is not None:  # the head pack holds the whole vocab
+            full = dict(full, head_pack=None)
+        params = shard_cast(params, ("armw", str(compute_dtype),
+                                     int8_weights),
+                            full, ar_param_specs, mesh, device)
+        text_ids = torch.as_tensor(text_ids[rows], device=device)
+        text_valid = torch.as_tensor(text_valid[rows], device=device)
+    with substage("ar.prefill", st, "ar_prefill_s", device):
+        logits, cache = ar.prefill(params, cfg, text_ids, text_valid,
+                                   voices, compute_dtype, qkv_f16, tp=tp)
+    with substage("ar.decode_loop", st, "ar_decode_loop_s", device) as sp:
+        # the first step penalizes the prefill filler ids {1, start}
+        n = text_ids.shape[0]
+        first_ids = torch.ones((n, bucket + 2), dtype=torch.long,
+                               device=device)
+        first_ids[:, -1] = cfg.start_mel_token
+        gen = common.make_generator(seed, device)
+        toks, lengths = _generate(params, cfg, logits, first_ids, cache, gen,
+                                  compute_dtype, sampler, rows, dp, tp,
+                                  qkv_f16, mesh)
+        if dp is not None:
+            toks, lengths = dp.all_gather(toks), dp.all_gather(lengths)
+        toks, lengths = toks.cpu().numpy(), lengths.cpu().numpy()
+        sp.add("steps", int(toks.shape[1]))
     if st is not None:
-        sync(device)
-        st["ar_cast_s"] = time.monotonic() - t_sub
-        t_sub = time.monotonic()
-    logits, cache = ar.prefill(params, cfg, text_ids, text_valid, voices,
-                               compute_dtype, qkv_f16, tp=tp)
-    if st is not None:
-        sync(device)
-        st["ar_prefill_s"] = time.monotonic() - t_sub
-        t_sub = time.monotonic()
-    # the first step penalizes the prefill filler ids {1, start}
-    n = text_ids.shape[0]
-    first_ids = torch.ones((n, bucket + 2), dtype=torch.long, device=device)
-    first_ids[:, -1] = cfg.start_mel_token
-    gen = common.make_generator(seed, device)
-    toks, lengths = _generate(params, cfg, logits, first_ids, cache, gen,
-                              compute_dtype, sampler, rows, dp, tp, qkv_f16,
-                              mesh)
-    if dp is not None:
-        toks, lengths = dp.all_gather(toks), dp.all_gather(lengths)
-    toks, lengths = toks.cpu().numpy(), lengths.cpu().numpy()
-    if st is not None:
-        st["ar_decode_loop_s"] = time.monotonic() - t_sub
         st["ar_decode_steps"] = int(toks.shape[1])
-        t_sub = time.monotonic()
-    sequences = [[int(t) for t in toks[i, :lengths[i]]] for i in range(b)]
-    padded = [apply_padding(s, cfg) for s in sequences]
-    mel_ids = torch.as_tensor(np.asarray(padded, np.int64)[rows],
-                              device=device)
-    latents = ar.latent_forward(params, cfg, text_ids, text_valid, mel_ids,
-                                voices, compute_dtype, qkv_f16, tp=tp)
-    if dp is not None:
-        latents = dp.all_gather(latents)
-    if st is not None:
-        sync(device)
-        st["ar_latent_s"] = time.monotonic() - t_sub
+    with substage("ar.latent", st, "ar_latent_s", device):
+        sequences = [[int(t) for t in toks[i, :lengths[i]]]
+                     for i in range(b)]
+        padded = [apply_padding(s, cfg) for s in sequences]
+        mel_ids = torch.as_tensor(np.asarray(padded, np.int64)[rows],
+                                  device=device)
+        latents = ar.latent_forward(params, cfg, text_ids, text_valid,
+                                    mel_ids, voices, compute_dtype, qkv_f16,
+                                    tp=tp)
+        if dp is not None:
+            latents = dp.all_gather(latents)
     if return_device_latents:
         return latents, trim_keep_lengths(padded, cfg), padded
-    return trim_latents(latents.float().cpu().numpy(), padded, cfg), padded
+    return trim_latents(download(latents)[0], padded, cfg), padded
 
 
 def _decode_buffers(cache, logits) -> dict:
@@ -530,59 +526,14 @@ def _decode_only_step(params, cfg: ARConfig, compute_dtype, qkv_f16,
     bufs["step"].add_(1)
 
 
-@torch.inference_mode()
-def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
-                   cfg: ARConfig = ARConfig(), sampler: str = "jax",
-                   seed: int = 0, rng=None, compute_dtype=None,
-                   qkv_f16: bool = False, int8_weights: bool = False,
-                   return_device_latents: bool = False,
-                   substage_timings: Optional[dict] = None,
-                   sampler_params=None, device=None) -> Tuple:
-    """Run stage 1 for ``batch_size`` candidates of one text. Returns
-    (trimmed_latents, padded_sequences) — or, with
-    return_device_latents, (latents (B, 500, D) on the device, keep_lens,
-    padded_sequences).
-
-    sampler="jax": on-device loop seeded by ``seed``;
-    sampler="reference": host loop driven by ``rng`` (a ReferenceRng).
-    ``qkv_f16``: the reference's f16 round trip of the qkv activations
-    (kernels A and C stay off)."""
-    device = resolve_device(device)
-    tokens = list(map(int, tokens))
-    _check_token_range([tokens], cfg)
-    if sampler == "jax":
-        return autoregressive_batch(
-            params, [tokens] * batch_size, np.asarray(voice, np.float32),
-            cfg, seed=seed, compute_dtype=compute_dtype, qkv_f16=qkv_f16,
-            int8_weights=int8_weights,
-            return_device_latents=return_device_latents,
-            substage_timings=substage_timings,
-            sampler_params=sampler_params, device=device)
-    if sampler != "reference":
-        raise ValueError(f"unknown sampler '{sampler}'")
-    t = len(tokens)
-    bucket = pick_bucket(t)
-    cfg = size_cache(cfg, bucket)
-    text_ids = torch.zeros((batch_size, bucket), dtype=torch.long,
-                           device=device)
-    text_valid = torch.zeros((batch_size, bucket), dtype=torch.bool,
-                             device=device)
-    text_ids[:, :t] = torch.as_tensor(tokens, device=device)
-    text_valid[:, :t] = True
-    st = substage_timings
-    t_sub = time.monotonic()
-    voice = torch.as_tensor(np.asarray(voice, np.float32), device=device)
-    params = cast_matmul_weights(params, compute_dtype, int8_weights, device)
-    if st is not None:
-        sync(device)
-        st["ar_cast_s"] = time.monotonic() - t_sub
-        t_sub = time.monotonic()
-    logits, cache = ar.prefill(params, cfg, text_ids, text_valid, voice,
-                               compute_dtype, qkv_f16)
-    if st is not None:
-        sync(device)
-        st["ar_prefill_s"] = time.monotonic() - t_sub
-        t_sub = time.monotonic()
+def _reference_loop(params, cfg: ARConfig, logits, cache, batch_size: int,
+                    bucket: int, seed: int, rng, compute_dtype, qkv_f16,
+                    sampler_params, device) -> Tuple[List[List[int]], int]:
+    """The reference plane's host-sampled loop from the prefill's
+    ``logits``: each step's logits are read back and sampled on the host
+    from ``rng`` (a ReferenceRng, seeded by ``seed`` when None), then the
+    decode step runs (a step graph's replay on the card). Returns each
+    candidate's sampled ids and the steps sampled."""
     if rng is None:
         from tortoise_tpu_torch.rng import ReferenceRng
 
@@ -620,17 +571,69 @@ def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
             logits = bufs["logits"]
             prev_ids = [[int(s)] for s in samples]
             step += 1
+    return sequences, step + 1
+
+
+@torch.inference_mode()
+def autoregressive(params, tokens: Sequence[int], voice, batch_size: int = 1,
+                   cfg: ARConfig = ARConfig(), sampler: str = "jax",
+                   seed: int = 0, rng=None, compute_dtype=None,
+                   qkv_f16: bool = False, int8_weights: bool = False,
+                   return_device_latents: bool = False,
+                   substage_timings: Optional[dict] = None,
+                   sampler_params=None, device=None) -> Tuple:
+    """Run stage 1 for ``batch_size`` candidates of one text. Returns
+    (trimmed_latents, padded_sequences) — or, with
+    return_device_latents, (latents (B, 500, D) on the device, keep_lens,
+    padded_sequences).
+
+    sampler="jax": on-device loop seeded by ``seed``;
+    sampler="reference": host loop driven by ``rng`` (a ReferenceRng).
+    ``qkv_f16``: the reference's f16 round trip of the qkv activations
+    (kernels A and C stay off)."""
+    device = resolve_device(device)
+    tokens = list(map(int, tokens))
+    _check_token_range([tokens], cfg)
+    if sampler == "jax":
+        return autoregressive_batch(
+            params, [tokens] * batch_size, np.asarray(voice, np.float32),
+            cfg, seed=seed, compute_dtype=compute_dtype, qkv_f16=qkv_f16,
+            int8_weights=int8_weights,
+            return_device_latents=return_device_latents,
+            substage_timings=substage_timings,
+            sampler_params=sampler_params, device=device)
+    if sampler != "reference":
+        raise ValueError(f"unknown sampler '{sampler}'")
+    t = len(tokens)
+    bucket = pick_bucket(t)
+    cfg = size_cache(cfg, bucket)
+    st = substage_timings
+    with substage("ar.cast", st, "ar_cast_s", device):
+        text_ids = torch.zeros((batch_size, bucket), dtype=torch.long,
+                               device=device)
+        text_valid = torch.zeros((batch_size, bucket), dtype=torch.bool,
+                                 device=device)
+        text_ids[:, :t] = torch.as_tensor(tokens, device=device)
+        text_valid[:, :t] = True
+        voice = torch.as_tensor(np.asarray(voice, np.float32), device=device)
+        params = cast_matmul_weights(params, compute_dtype, int8_weights,
+                                     device)
+    with substage("ar.prefill", st, "ar_prefill_s", device):
+        logits, cache = ar.prefill(params, cfg, text_ids, text_valid, voice,
+                                   compute_dtype, qkv_f16)
+    with substage("ar.decode_loop", st, "ar_decode_loop_s", device) as loop:
+        sequences, steps = _reference_loop(
+            params, cfg, logits, cache, batch_size, bucket, seed, rng,
+            compute_dtype, qkv_f16, sampler_params, device)
+        loop.add("steps", steps)
     if st is not None:
-        st["ar_decode_loop_s"] = time.monotonic() - t_sub
-        st["ar_decode_steps"] = step + 1
-        t_sub = time.monotonic()
-    padded = [apply_padding(s, cfg) for s in sequences]
-    mel_ids = torch.as_tensor(np.asarray(padded, np.int64), device=device)
-    latents = ar.latent_forward(params, cfg, text_ids, text_valid, mel_ids,
-                                voice, compute_dtype, qkv_f16)
-    if st is not None:
-        sync(device)
-        st["ar_latent_s"] = time.monotonic() - t_sub
+        st["ar_decode_steps"] = steps
+    with substage("ar.latent", st, "ar_latent_s", device):
+        padded = [apply_padding(s, cfg) for s in sequences]
+        mel_ids = torch.as_tensor(np.asarray(padded, np.int64),
+                                  device=device)
+        latents = ar.latent_forward(params, cfg, text_ids, text_valid,
+                                    mel_ids, voice, compute_dtype, qkv_f16)
     if return_device_latents:
         return latents, trim_keep_lengths(padded, cfg), padded
-    return trim_latents(latents.float().cpu().numpy(), padded, cfg), padded
+    return trim_latents(download(latents)[0], padded, cfg), padded

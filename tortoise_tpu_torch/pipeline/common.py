@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import warnings
 
@@ -9,6 +10,7 @@ import numpy as np
 import torch
 
 from tortoise_tpu_torch.pipeline import graphs
+from tortoise_tpu_torch.utils.profiling import span
 
 
 def round_up(n: int, m: int) -> int:
@@ -32,6 +34,25 @@ def sync(device) -> None:
     are taken at these points."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def substage(name: str, timings, key: str, device):
+    """The span ``name`` on ``device``, yielded; with ``timings`` (a
+    stage's ``substage_timings``) the device is waited for at its end and
+    its host wall goes to ``timings[key]``."""
+    with span(name, device) as sp:
+        yield sp
+        if timings is not None:
+            sync(device)
+    if timings is not None:
+        timings[key] = sp.s
+
+
+def download(*tensors: torch.Tensor) -> list:
+    """The tensors as float32 host arrays, in one ``download`` span."""
+    with span("download", tensors[0].device):
+        return [t.float().cpu().numpy() for t in tensors]
 
 
 def _on_device(tree, device: torch.device) -> bool:

@@ -31,7 +31,6 @@ rank returns every row.
 from __future__ import annotations
 
 import functools
-import time
 from typing import Optional
 
 import numpy as np
@@ -48,13 +47,16 @@ from tortoise_tpu_torch.pipeline import common, graphs
 from tortoise_tpu_torch.pipeline import schedule as ds
 from tortoise_tpu_torch.pipeline.common import (
     cached_cast,
+    download,
     dp_rows,
     draw_rows,
     resolve_device,
     round_up,
     shard_cast,
+    substage,
     sync,
 )
+from tortoise_tpu_torch.utils import profiling
 
 LAT_BUCKET = 32
 OUT_BUCKET = 64
@@ -282,66 +284,65 @@ def diffusion_batch_device(params, latents_dev, keep_lens,
     a device (B, n_mel, out_pad) tensor plus per-row lengths (numpy), all
     rows in one masked batch. ``progress(fraction)`` fires at 0 and after
     the steps of ``_progress_cuts``. ``substage_timings`` receives the
-    walls of the weight cast and of the rest (conditioner plus the
-    denoising loop), synchronising the device at each boundary. ``mesh``:
-    this rank denoises its rows and heads and returns every row (see the
-    module docstring). ``bucketed=False`` pads to the longest row's own
+    walls of the weight cast and of the rest (the span
+    ``diffusion.sample``: the conditioner and the denoising loop),
+    synchronising the device at each boundary. ``mesh``: this rank
+    denoises its rows and heads and returns every row (see the module
+    docstring). ``bucketed=False`` pads to the longest row's own
     lengths instead of LAT_BUCKET / OUT_BUCKET (the JAX package's host
     wrappers reach that; its device entry always rounds up)."""
     device = resolve_device(device)
     st = substage_timings
-    t_sub = time.monotonic()
-    params = _prepare_params(params, int8_weights, device, mesh)
-    tp = axis_group(mesh, "tp")
-    if st is not None:
-        sync(device)
-        st["diffusion_cast_s"] = time.monotonic() - t_sub
-        t_sub = time.monotonic()
-    b = latents_dev.shape[0]
-    if b == 0:
-        raise ValueError("latents_dev has no rows")
-    lat_lens = np.asarray(keep_lens, np.int64)
-    out_lens = np.asarray([mel_length_for_latents(int(n)) for n in lat_lens],
-                          np.int64)
-    lat_pad, out_pad = _pads(int(lat_lens.max()), int(out_lens.max()),
-                             bucketed)
-    lat_in = latents_dev.to(device).float()[:, :lat_pad]
-    if lat_in.shape[1] < lat_pad:
-        lat_in = torch.nn.functional.pad(
-            lat_in, (0, 0, 0, lat_pad - lat_in.shape[1]))
-    # this rank's rows, padded and masked as in the whole batch
-    rows = dp_rows(mesh, b, "diffusion_batch_device")
-    lat_mask, out_mask = (None if m is None else m[rows] for m in _masks(
-        lat_lens, out_lens, lat_pad, out_pad, device))
-    sched = schedule_arrays(cfg, device)
-    cond, uncond = dmodel.code_embeddings(
-        params, cfg, lat_in[rows], _buckets(lat_pad, cfg, device), out_pad,
-        torch.as_tensor(lat_lens[rows], device=device),
-        torch.as_tensor(out_lens[rows], device=device), lat_mask,
-        compute_dtype, tp)
-    code_emb2 = torch.cat([cond, uncond], dim=0)
-    gen = common.make_generator(seed, device)
+    with substage("diffusion.cast", st, "diffusion_cast_s", device):
+        params = _prepare_params(params, int8_weights, device, mesh)
+        tp = axis_group(mesh, "tp")
+    n = cfg.n_sample_timesteps
+    with substage("diffusion.sample", st, "diffusion_loop_s", device):
+        with profiling.span("diffusion.conditioner", device):
+            b = latents_dev.shape[0]
+            if b == 0:
+                raise ValueError("latents_dev has no rows")
+            lat_lens = np.asarray(keep_lens, np.int64)
+            out_lens = np.asarray([mel_length_for_latents(int(k))
+                                   for k in lat_lens], np.int64)
+            lat_pad, out_pad = _pads(int(lat_lens.max()),
+                                     int(out_lens.max()), bucketed)
+            lat_in = latents_dev.to(device).float()[:, :lat_pad]
+            if lat_in.shape[1] < lat_pad:
+                lat_in = torch.nn.functional.pad(
+                    lat_in, (0, 0, 0, lat_pad - lat_in.shape[1]))
+            # this rank's rows, padded and masked as in the whole batch
+            rows = dp_rows(mesh, b, "diffusion_batch_device")
+            lat_mask, out_mask = (None if m is None else m[rows]
+                                  for m in _masks(lat_lens, out_lens,
+                                                  lat_pad, out_pad, device))
+            sched = schedule_arrays(cfg, device)
+            cond, uncond = dmodel.code_embeddings(
+                params, cfg, lat_in[rows], _buckets(lat_pad, cfg, device),
+                out_pad, torch.as_tensor(lat_lens[rows], device=device),
+                torch.as_tensor(out_lens[rows], device=device), lat_mask,
+                compute_dtype, tp)
+            code_emb2 = torch.cat([cond, uncond], dim=0)
+        with profiling.span("diffusion.denoise_loop", device, steps=n):
+            gen = common.make_generator(seed, device)
 
-    def draw_noise():
-        return draw_rows(draw_normal, gen, (b, cfg.n_mel, out_pad), device,
-                         rows)
+            def draw_noise():
+                return draw_rows(draw_normal, gen, (b, cfg.n_mel, out_pad),
+                                 device, rows)
 
-    x = draw_noise()
-    if out_mask is not None:
-        x = torch.where(out_mask[:, None, :], x, 0.0)
-    if progress is not None:
-        progress(0.0)
-    x = _denoise_loop(params, cfg, sched, code_emb2, x,
-                      _buckets(out_pad, cfg, device), out_mask, draw_noise,
-                      compute_dtype, variance_swap, progress,
-                      set(_progress_cuts(cfg.n_sample_timesteps)[1:]), tp,
-                      mesh)
-    if rows != slice(0, b):
-        x = axis_group(mesh, "dp").all_gather(x)
+            x = draw_noise()
+            if out_mask is not None:
+                x = torch.where(out_mask[:, None, :], x, 0.0)
+            if progress is not None:
+                progress(0.0)
+            x = _denoise_loop(params, cfg, sched, code_emb2, x,
+                              _buckets(out_pad, cfg, device), out_mask,
+                              draw_noise, compute_dtype, variance_swap,
+                              progress, set(_progress_cuts(n)[1:]), tp, mesh)
+            if rows != slice(0, b):
+                x = axis_group(mesh, "dp").all_gather(x)
     if st is not None:
-        sync(device)
-        st["diffusion_loop_s"] = time.monotonic() - t_sub
-        st["diffusion_steps"] = cfg.n_sample_timesteps
+        st["diffusion_steps"] = n
     return x, out_lens
 
 
@@ -366,7 +367,7 @@ def diffusion_batch(params, latents_list,
         params, torch.as_tensor(lat_in), lens, cfg, seed, variance_swap,
         compute_dtype, mesh, int8_weights, device, progress,
         bucketed=bucketed)
-    mel = mel.float().cpu().numpy()
+    (mel,) = download(mel)
     return [mel[i, :, :out_lens[i]] for i in range(len(lats))]
 
 
@@ -388,20 +389,23 @@ def diffusion(params, latents: np.ndarray,
                                compute_dtype, bucketed, progress=progress,
                                int8_weights=int8_weights, device=device)[0]
     latents = np.asarray(latents, np.float32)
-    params = _prepare_params(params, int8_weights, device)
-    lat_len = latents.shape[0]
-    out_len = mel_length_for_latents(lat_len)
-    lat_pad, out_pad = _pads(lat_len, out_len, bucketed)
-    lat_in = np.zeros((1, lat_pad, latents.shape[1]), np.float32)
-    lat_in[0, :lat_len] = latents
-    lat_mask, out_mask = _masks([lat_len], [out_len], lat_pad, out_pad,
-                                device)
-    sched = schedule_arrays(cfg, device)
-    cond, uncond = dmodel.code_embeddings(
-        params, cfg, torch.as_tensor(lat_in, device=device),
-        _buckets(lat_pad, cfg, device), out_pad, lat_len, out_len, lat_mask,
-        compute_dtype)
-    code_emb2 = torch.cat([cond, uncond], dim=0)
+    with profiling.span("diffusion.cast", device):
+        params = _prepare_params(params, int8_weights, device)
+    n = cfg.n_sample_timesteps
+    with profiling.span("diffusion.conditioner", device):
+        lat_len = latents.shape[0]
+        out_len = mel_length_for_latents(lat_len)
+        lat_pad, out_pad = _pads(lat_len, out_len, bucketed)
+        lat_in = np.zeros((1, lat_pad, latents.shape[1]), np.float32)
+        lat_in[0, :lat_len] = latents
+        lat_mask, out_mask = _masks([lat_len], [out_len], lat_pad, out_pad,
+                                    device)
+        sched = schedule_arrays(cfg, device)
+        cond, uncond = dmodel.code_embeddings(
+            params, cfg, torch.as_tensor(lat_in, device=device),
+            _buckets(lat_pad, cfg, device), out_pad, lat_len, out_len,
+            lat_mask, compute_dtype)
+        code_emb2 = torch.cat([cond, uncond], dim=0)
 
     def draw_noise():
         x = np.zeros((1, cfg.n_mel, out_pad), np.float32)
@@ -409,8 +413,8 @@ def diffusion(params, latents: np.ndarray,
             cfg.n_mel, out_len)
         return torch.as_tensor(x, device=device)
 
-    x = _denoise_loop(params, cfg, sched, code_emb2, draw_noise(),
-                      _buckets(out_pad, cfg, device), out_mask, draw_noise,
-                      compute_dtype, variance_swap, progress)
-    return x[0, :, :out_len].float().cpu().numpy()
-
+    with profiling.span("diffusion.denoise_loop", device, steps=n):
+        x = _denoise_loop(params, cfg, sched, code_emb2, draw_noise(),
+                          _buckets(out_pad, cfg, device), out_mask,
+                          draw_noise, compute_dtype, variance_swap, progress)
+    return download(x[0, :, :out_len])[0]

@@ -32,6 +32,10 @@ generator, in the same order), reads the AR stop flags every
   the cast cache's eviction (``pipeline.common``) drop the tree's
   entries, so no graph outlives the weights it reads. An entry's buffers
   serve one loop at a time (``StepGraph.lock``).
+- **Spans and counters** (``utils.profiling``): a warm-up and a capture
+  are the spans ``graph.warmup`` and ``graph.capture``; each step of a
+  loop counts as one of ``graph_warmups``, ``graph_captures`` or
+  ``graph_replays`` on the span the loop runs in.
 """
 
 from __future__ import annotations
@@ -40,12 +44,12 @@ import collections
 import contextlib
 import functools
 import threading
-import time
 from typing import Callable, Optional
 
 import torch
 
 from tortoise_tpu_torch.ops import cuda as kernels
+from tortoise_tpu_torch.utils import profiling
 
 MAX_GRAPHS = 8
 
@@ -61,13 +65,15 @@ class StepGraph:
     reads and writes in place) and ``step(bufs)``. Calling it runs one
     step: the first call warms up, the second captures, every later call
     replays. ``keep`` holds what the captured kernels read by address
-    beside the weights (the schedule tables)."""
+    beside the weights (the schedule tables). ``warmups``, ``captures``
+    and ``replays`` count the steps run each way."""
 
     def __init__(self, bufs: dict, step: Callable[[dict], None], keep=()):
         self.bufs = bufs
         self.lock = threading.Lock()
         self.launches: dict = {}   # kernel launches a replay makes
         self.capture_s: Optional[float] = None
+        self.warmups = self.captures = self.replays = 0
         self._step = step
         self._keep = keep
         self._warm = False
@@ -75,36 +81,44 @@ class StepGraph:
 
     def __call__(self) -> None:
         if self._graph is not None:
-            self._graph.replay()
-            kernels.add_launch_counts(self.launches)
+            self.replays += 1
+            self._replay()
         elif not self._warm:
+            self.warmups += 1
             self._warm_up()
         else:
+            self.captures += 1
             self._capture()
 
+    def _replay(self) -> None:
+        self._graph.replay()
+        kernels.add_launch_counts(self.launches)
+
     def _warm_up(self) -> None:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._step(self.bufs)
-        torch.cuda.current_stream().wait_stream(side)
+        with profiling.span("graph.warmup"):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._step(self.bufs)
+            torch.cuda.current_stream().wait_stream(side)
         self._warm = True
 
     def _capture(self) -> None:
         """Capture the step and run it once (a capture records without
         running)."""
-        t0 = time.monotonic()
-        graph = torch.cuda.CUDAGraph()
-        before = kernels.launch_counts()
-        with torch.cuda.graph(graph):
-            self._step(self.bufs)
-        after = kernels.launch_counts()
-        self.launches = {k: n - before[k] for k, n in after.items()
-                         if n != before[k]}
-        kernels.add_launch_counts({k: -n for k, n in self.launches.items()})
-        self._graph = graph
-        self.capture_s = time.monotonic() - t0
-        self()
+        with profiling.span("graph.capture") as sp:
+            graph = torch.cuda.CUDAGraph()
+            before = kernels.launch_counts()
+            with torch.cuda.graph(graph):
+                self._step(self.bufs)
+            after = kernels.launch_counts()
+            self.launches = {k: n - before[k] for k, n in after.items()
+                             if n != before[k]}
+            kernels.add_launch_counts(
+                {k: -n for k, n in self.launches.items()})
+            self._graph = graph
+            self._replay()
+        self.capture_s = sp.s
 
 
 _graphs: "collections.OrderedDict" = collections.OrderedDict()
@@ -148,14 +162,22 @@ def stepping(graphed: bool, key: tuple, tree, make_bufs: Callable,
     ``bufs``. With ``graphed`` (``use_graphs``): the cached StepGraph of
     ``key`` on ``tree``, built over ``make_bufs(True)`` (buffers of its
     own) on a miss and held for the loop; else ``make_bufs(False)`` with
-    ``step`` run eagerly."""
+    ``step`` run eagerly. A graph loop adds the steps it warmed up,
+    captured and replayed to the span it runs in."""
     if not graphed:
         bufs = make_bufs(False)
         yield bufs, functools.partial(step, bufs)
         return
     graph = cached(key, tree, lambda: StepGraph(make_bufs(True), step, keep))
     with graph.lock:
-        yield graph.bufs, graph
+        before = (graph.warmups, graph.captures, graph.replays)
+        try:
+            yield graph.bufs, graph
+        finally:
+            for name, n0, n1 in zip(
+                    ("graph_warmups", "graph_captures", "graph_replays"),
+                    before, (graph.warmups, graph.captures, graph.replays)):
+                profiling.count(name, n1 - n0)
 
 
 def entries() -> list:

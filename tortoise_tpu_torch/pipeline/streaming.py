@@ -26,6 +26,13 @@ On a card with ``use_flash`` every window's attention runs kernel B at
 the window's length (the defaults give 96 for the first window and 384
 after it), and a vocoder with ``use_pallas_lvc`` runs kernel E on every
 chunk.
+
+Spans (``utils.profiling``): the AR stage is the span ``ar``; then the
+weight casts (``diffusion.cast``, ``vocoder.cast``, the latter with the
+vocoder's noise draw), the conditioner (``diffusion.conditioner``), each
+window's loop and mel download (``stream.window``) and each chunk's
+vocoder pass and audio download (``stream.chunk``). No span stays open
+across a yield.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from tortoise_tpu_torch.pipeline import ar_stage, common
 from tortoise_tpu_torch.pipeline import diffusion_stage as dst
 from tortoise_tpu_torch.pipeline import vocoder_stage as vst
 from tortoise_tpu_torch.pipeline.common import resolve_device, round_up
+from tortoise_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -113,7 +121,8 @@ def stream_mel_windows(params, cfg: DiffusionConfig, latents_dev, keep_len,
     device = resolve_device(device)
     w, ov = _check_geometry(window_frames, overlap_frames,
                             first_window_frames)
-    params = dst._prepare_params(params, int8_weights, device)
+    with profiling.span("diffusion.cast", device):
+        params = dst._prepare_params(params, int8_weights, device)
     lat_len = int(keep_len)
     out_len = mel_length_for_latents(lat_len)
     # out_pad as in the batch path, so the one global noise draw has the
@@ -122,23 +131,25 @@ def stream_mel_windows(params, cfg: DiffusionConfig, latents_dev, keep_len,
     wp = min(w + ov, out_pad)
 
     lat_pad = round_up(lat_len, dst.LAT_BUCKET)
-    lat_in = latents_dev.to(device).float()[:, :lat_pad]
-    if lat_in.shape[1] < lat_pad:
-        lat_in = torch.nn.functional.pad(
-            lat_in, (0, 0, 0, lat_pad - lat_in.shape[1]))
-    lat_mask, _ = dst._masks([lat_len], [out_len], lat_pad, out_pad, device)
-    sched = dst.schedule_arrays(cfg, device)
-    # the global conditioner, as in the batch path
-    cond, uncond = dmodel.code_embeddings(
-        params, cfg, lat_in, dst._buckets(lat_pad, cfg, device), out_pad,
-        lat_len, out_len, lat_mask, compute_dtype)
-    code_emb2 = torch.cat([cond, uncond], dim=0)        # (2, C, out_pad)
+    with profiling.span("diffusion.conditioner", device):
+        lat_in = latents_dev.to(device).float()[:, :lat_pad]
+        if lat_in.shape[1] < lat_pad:
+            lat_in = torch.nn.functional.pad(
+                lat_in, (0, 0, 0, lat_pad - lat_in.shape[1]))
+        lat_mask, _ = dst._masks([lat_len], [out_len], lat_pad, out_pad,
+                                 device)
+        sched = dst.schedule_arrays(cfg, device)
+        # the global conditioner, as in the batch path
+        cond, uncond = dmodel.code_embeddings(
+            params, cfg, lat_in, dst._buckets(lat_pad, cfg, device), out_pad,
+            lat_len, out_len, lat_mask, compute_dtype)
+        code_emb2 = torch.cat([cond, uncond], dim=0)    # (2, C, out_pad)
 
-    # one global initial-noise draw, sliced per window
-    gen = common.make_generator(seed, device)
-    noise_full = dst.draw_normal(gen, (1, cfg.n_mel, out_pad), device)
-    in_len = torch.arange(out_pad, device=device) < out_len
-    noise_full = torch.where(in_len[None, None, :], noise_full, 0.0)
+        # one global initial-noise draw, sliced per window
+        gen = common.make_generator(seed, device)
+        noise_full = dst.draw_normal(gen, (1, cfg.n_mel, out_pad), device)
+        in_len = torch.arange(out_pad, device=device) < out_len
+        noise_full = torch.where(in_len[None, None, :], noise_full, 0.0)
 
     mel_buf = np.zeros((cfg.n_mel, out_len), np.float32)
     ramp = (np.arange(1, ov + 1, dtype=np.float32) / (ov + 1))[None, :] \
@@ -153,15 +164,17 @@ def stream_mel_windows(params, cfg: DiffusionConfig, latents_dev, keep_len,
         e = min((w0 if i == 0 else s + w), out_len)
         wp_i = w0 if i == 0 else wp
         a = max(0, min(s - ov, out_pad - wp_i)) if i else 0
-        mask_np = np.arange(a, a + wp_i) < out_len
-        mask_w = None if mask_np.all() else torch.as_tensor(
-            mask_np[None, :], device=device)
-        wgen = gen if len(starts) == 1 else window_generator(gen, i)
-        x = _denoise_window(params, cfg, sched, code_emb2[:, :, a:a + wp_i],
-                            noise_full[:, :, a:a + wp_i],
-                            dst._buckets(wp_i, cfg, device), mask_w, wgen,
-                            variance_swap, compute_dtype)
-        mel_w = x[0].float().cpu().numpy()              # (n_mel, wp_i)
+        with profiling.span("stream.window", device):
+            mask_np = np.arange(a, a + wp_i) < out_len
+            mask_w = None if mask_np.all() else torch.as_tensor(
+                mask_np[None, :], device=device)
+            wgen = gen if len(starts) == 1 else window_generator(gen, i)
+            x = _denoise_window(params, cfg, sched,
+                                code_emb2[:, :, a:a + wp_i],
+                                noise_full[:, :, a:a + wp_i],
+                                dst._buckets(wp_i, cfg, device), mask_w, wgen,
+                                variance_swap, compute_dtype)
+            (mel_w,) = common.download(x[0])            # (n_mel, wp_i)
         lo = s - a                                      # emit offset
         new = mel_w[:, lo:lo + (e - s)]
         if i > 0 and ov:
@@ -181,9 +194,10 @@ def stream_mel_windows(params, cfg: DiffusionConfig, latents_dev, keep_len,
 
 
 @torch.inference_mode()
-def _vocode_chunk(vparams, vcfg, mel_in, noise, span, compute_dtype):
-    return vmodel.vocoder_forward(vparams, vcfg, mel_in, noise, span,
-                                  compute_dtype)[0].float().cpu().numpy()
+def _vocode_chunk(vparams, vcfg, mel_in, noise, frames, compute_dtype):
+    with profiling.span("stream.chunk", mel_in.device):
+        return common.download(vmodel.vocoder_forward(
+            vparams, vcfg, mel_in, noise, frames, compute_dtype)[0])[0]
 
 
 def stream_audio_chunks(vparams, vcfg: VocoderConfig, mel_spans,
@@ -203,15 +217,16 @@ def stream_audio_chunks(vparams, vcfg: VocoderConfig, mel_spans,
     if m < 0:
         # a negative margin would slice past the finalized mel span
         raise ValueError(f"margin must be >= 0, got {margin}")
-    vparams = vst.device_params(vparams, device)
     u = vcfg.total_upsample
     total = out_len + vcfg.mel_pad_frames
     # one bucket of slack: the last chunk's context slice starts at
     # ctxa > 0 and its rounded-up width can reach one bucket past
     # round_up(total)
     pad_total = round_up(total, vst.MEL_BUCKET) + vst.MEL_BUCKET
-    noise_full = vst.draw_normal(common.make_generator(seed, device),
-                                 (1, vcfg.noise_ch, pad_total), device)
+    with profiling.span("vocoder.cast", device):
+        vparams = vst.device_params(vparams, device)
+        noise_full = vst.draw_normal(common.make_generator(seed, device),
+                                     (1, vcfg.noise_ch, pad_total), device)
 
     mel_buf = np.zeros((vcfg.n_mel, out_len), np.float32)
     emitted = 0       # mel frames whose audio has been yielded
@@ -289,11 +304,12 @@ def _stream_synthesize_gen(models, tokens, voice, seed, compute_dtype,
                            vocoder_margin, first_window_frames,
                            sampler_params, device) -> Iterator[StreamChunk]:
     t0 = time.monotonic()
-    lat_dev, keeps, _ = ar_stage.autoregressive(
-        models.ar_params, tokens, voice, 1, models.ar_cfg, sampler="jax",
-        seed=seed, compute_dtype=compute_dtype, int8_weights=int8_weights,
-        return_device_latents=True, sampler_params=sampler_params,
-        device=device)
+    with profiling.span("ar", device):
+        lat_dev, keeps, _ = ar_stage.autoregressive(
+            models.ar_params, tokens, voice, 1, models.ar_cfg, sampler="jax",
+            seed=seed, compute_dtype=compute_dtype,
+            int8_weights=int8_weights, return_device_latents=True,
+            sampler_params=sampler_params, device=device)
     out_len = mel_length_for_latents(int(keeps[0]))
     spans = stream_mel_windows(
         models.diffusion_params, models.diffusion_cfg, lat_dev[0:1],

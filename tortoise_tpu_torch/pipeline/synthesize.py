@@ -8,13 +8,18 @@ multinomials, diffusion initial noise, the step noises, vocoder noise),
 which is the plane held token for token against the JAX package.
 ``synthesize_batch`` is the serving path: several utterances, each with
 its own voice, through one batched AR / diffusion / vocoder pass.
+
+Each call is a request span (``synthesize``, ``synthesize_batch``) over
+the stage spans ``ar``, ``diffusion`` and ``vocoder``
+(``utils.profiling``); the stages' leaf spans, and the ``download`` of the
+results, hold every device launch the call makes. ``timings`` holds the
+stage spans' host walls.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -24,7 +29,8 @@ from tortoise_tpu_torch.io.voice import load_voice_latent
 from tortoise_tpu_torch.io.wav import write_wav
 from tortoise_tpu_torch.text.tokenizer import Tokenizer
 from tortoise_tpu_torch.pipeline import ar_stage, diffusion_stage, vocoder_stage
-from tortoise_tpu_torch.pipeline.common import resolve_device, sync
+from tortoise_tpu_torch.pipeline.common import download, resolve_device, sync
+from tortoise_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -212,32 +218,34 @@ def synthesize_batch(models: TortoiseModels,
     timings = {}
     st = timings if stage_sync else None
     kw = dict(compute_dtype=compute_dtype, device=device, mesh=mesh)
-    t0 = time.monotonic()
-    lat_dev, keeps, sequences = ar_stage.autoregressive_batch(
-        models.ar_params, tokens_list, voices, models.ar_cfg, seed=seed,
-        int8_weights=int8_weights, return_device_latents=True,
-        substage_timings=st, sampler_params=sampler_params, **kw)
-    timings["autoregressive_s"] = time.monotonic() - t0
-    t0 = time.monotonic()
-    mel_dev, out_lens = diffusion_stage.diffusion_batch_device(
-        models.diffusion_params, lat_dev, keeps, models.diffusion_cfg,
-        seed=seed + 1, int8_weights=int8_weights, progress=progress,
-        substage_timings=st, **kw)
-    if stage_sync:
-        sync(device)
-    timings["diffusion_s"] = time.monotonic() - t0
-    t0 = time.monotonic()
-    audios = vocoder_stage.vocoder_batch_device(
-        models.vocoder_params, mel_dev, out_lens, models.vocoder_cfg,
-        seed=seed + 2, **kw)
-    if materialize:
-        mel_h = mel_dev.float().cpu().numpy()
-        lat_h = lat_dev.float().cpu().numpy()
-        mels = [mel_h[i, :, :out_lens[i]] for i in range(b)]
-        latents = [lat_h[i, :keeps[i]] for i in range(b)]
-    else:
-        mels = latents = [None] * b
-    timings["vocoder_s"] = time.monotonic() - t0
+    with span("synthesize_batch", device):
+        with span("ar") as stage:
+            lat_dev, keeps, sequences = ar_stage.autoregressive_batch(
+                models.ar_params, tokens_list, voices, models.ar_cfg,
+                seed=seed, int8_weights=int8_weights,
+                return_device_latents=True, substage_timings=st,
+                sampler_params=sampler_params, **kw)
+        timings["autoregressive_s"] = stage.s
+        with span("diffusion") as stage:
+            mel_dev, out_lens = diffusion_stage.diffusion_batch_device(
+                models.diffusion_params, lat_dev, keeps,
+                models.diffusion_cfg, seed=seed + 1,
+                int8_weights=int8_weights, progress=progress,
+                substage_timings=st, **kw)
+            if stage_sync:
+                sync(device)
+        timings["diffusion_s"] = stage.s
+        with span("vocoder") as stage:
+            audios = vocoder_stage.vocoder_batch_device(
+                models.vocoder_params, mel_dev, out_lens, models.vocoder_cfg,
+                seed=seed + 2, **kw)
+            if materialize:
+                mel_h, lat_h = download(mel_dev, lat_dev)
+                mels = [mel_h[i, :, :out_lens[i]] for i in range(b)]
+                latents = [lat_h[i, :keeps[i]] for i in range(b)]
+            else:
+                mels = latents = [None] * b
+        timings["vocoder_s"] = stage.s
     return [SynthesisResult(audio=audios[i],
                             sample_rate=models.vocoder_cfg.sample_rate,
                             mel=mels[i], sequences=[sequences[i]],
@@ -278,55 +286,64 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
         rng = ReferenceRng(seed)
 
     timings = {}
-    t0 = time.monotonic()
-    if sampler == "jax" and rng is None:
-        lat_dev, keeps, sequences = ar_stage.autoregressive(
-            models.ar_params, tokens, voice, batch_size, models.ar_cfg,
-            sampler=sampler, seed=seed, compute_dtype=compute_dtype,
-            int8_weights=int8_weights, return_device_latents=True,
-            substage_timings=timings if stage_sync else None,
-            sampler_params=sampler_params, device=device)
-        timings["autoregressive_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        mel_dev, out_lens = diffusion_stage.diffusion_batch_device(
-            models.diffusion_params, lat_dev[0:1], [keeps[0]],
-            models.diffusion_cfg, seed=seed + 1, compute_dtype=compute_dtype,
-            int8_weights=int8_weights, device=device, progress=progress,
-            substage_timings=timings if stage_sync else None)
-        if stage_sync:
-            sync(device)
-        timings["diffusion_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        audio = vocoder_stage.vocoder_batch_device(
-            models.vocoder_params, mel_dev, out_lens, models.vocoder_cfg,
-            seed=seed + 2, compute_dtype=compute_dtype, device=device)[0]
-        # the downloads stay inside the stage walls, so their sum (RTF)
-        # counts the same host copies as before ``materialize`` existed
-        if materialize:
-            mel = mel_dev[0, :, :out_lens[0]].float().cpu().numpy()
-            latents = [lat_dev[b, :keeps[b]].float().cpu().numpy()
-                       for b in range(lat_dev.shape[0])]
+    st = timings if stage_sync else None
+    with span("synthesize", device):
+        if sampler == "jax" and rng is None:
+            with span("ar") as stage:
+                lat_dev, keeps, sequences = ar_stage.autoregressive(
+                    models.ar_params, tokens, voice, batch_size,
+                    models.ar_cfg, sampler=sampler, seed=seed,
+                    compute_dtype=compute_dtype, int8_weights=int8_weights,
+                    return_device_latents=True, substage_timings=st,
+                    sampler_params=sampler_params, device=device)
+            timings["autoregressive_s"] = stage.s
+            with span("diffusion") as stage:
+                mel_dev, out_lens = diffusion_stage.diffusion_batch_device(
+                    models.diffusion_params, lat_dev[0:1], [keeps[0]],
+                    models.diffusion_cfg, seed=seed + 1,
+                    compute_dtype=compute_dtype, int8_weights=int8_weights,
+                    device=device, progress=progress, substage_timings=st)
+                if stage_sync:
+                    sync(device)
+            timings["diffusion_s"] = stage.s
+            with span("vocoder") as stage:
+                audio = vocoder_stage.vocoder_batch_device(
+                    models.vocoder_params, mel_dev, out_lens,
+                    models.vocoder_cfg, seed=seed + 2,
+                    compute_dtype=compute_dtype, device=device)[0]
+                # the downloads stay inside the stage walls, so their sum
+                # (RTF) counts the same host copies as before
+                # ``materialize`` existed
+                if materialize:
+                    mel, *latents = download(
+                        mel_dev[0, :, :out_lens[0]],
+                        *(lat_dev[b, :keeps[b]]
+                          for b in range(lat_dev.shape[0])))
+                else:
+                    mel, latents = None, [None] * lat_dev.shape[0]
+            timings["vocoder_s"] = stage.s
         else:
-            mel, latents = None, [None] * lat_dev.shape[0]
-        timings["vocoder_s"] = time.monotonic() - t0
-    else:
-        latents, sequences = ar_stage.autoregressive(
-            models.ar_params, tokens, voice, batch_size, models.ar_cfg,
-            sampler=sampler, seed=seed, rng=rng, compute_dtype=compute_dtype,
-            int8_weights=int8_weights, sampler_params=sampler_params,
-            substage_timings=timings if stage_sync else None, device=device)
-        timings["autoregressive_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        mel = diffusion_stage.diffusion(
-            models.diffusion_params, latents[0], models.diffusion_cfg,
-            seed=seed + 1, rng=rng, compute_dtype=compute_dtype,
-            int8_weights=int8_weights, device=device, progress=progress)
-        timings["diffusion_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        audio = vocoder_stage.vocoder(
-            models.vocoder_params, mel, models.vocoder_cfg, seed=seed + 2,
-            rng=rng, compute_dtype=compute_dtype, device=device)
-        timings["vocoder_s"] = time.monotonic() - t0
+            with span("ar") as stage:
+                latents, sequences = ar_stage.autoregressive(
+                    models.ar_params, tokens, voice, batch_size,
+                    models.ar_cfg, sampler=sampler, seed=seed, rng=rng,
+                    compute_dtype=compute_dtype, int8_weights=int8_weights,
+                    sampler_params=sampler_params, substage_timings=st,
+                    device=device)
+            timings["autoregressive_s"] = stage.s
+            with span("diffusion") as stage:
+                mel = diffusion_stage.diffusion(
+                    models.diffusion_params, latents[0],
+                    models.diffusion_cfg, seed=seed + 1, rng=rng,
+                    compute_dtype=compute_dtype, int8_weights=int8_weights,
+                    device=device, progress=progress)
+            timings["diffusion_s"] = stage.s
+            with span("vocoder") as stage:
+                audio = vocoder_stage.vocoder(
+                    models.vocoder_params, mel, models.vocoder_cfg,
+                    seed=seed + 2, rng=rng, compute_dtype=compute_dtype,
+                    device=device)
+            timings["vocoder_s"] = stage.s
     return SynthesisResult(audio=audio,
                            sample_rate=models.vocoder_cfg.sample_rate,
                            mel=mel, sequences=sequences, latents=latents,

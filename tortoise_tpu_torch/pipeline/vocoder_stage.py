@@ -34,12 +34,14 @@ from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline import common
 from tortoise_tpu_torch.pipeline.common import (
     cached_cast,
+    download,
     dp_rows,
     draw_rows,
     resolve_device,
     round_up,
     shard_cast,
 )
+from tortoise_tpu_torch.utils import profiling
 
 MEL_BUCKET = 32
 
@@ -63,6 +65,13 @@ def device_params(params, device, mesh=None):
                        device)
     return shard_cast(params, "device", full, lambda m: vocoder_param_specs(
         m, len(full["stages"])), mesh, device)
+
+
+def _audio_s(mel_lens, cfg: VocoderConfig) -> float:
+    """Seconds of audio the vocoder makes from mels of ``mel_lens``
+    frames (the ``audio_s`` counter of ``vocoder.forward``)."""
+    return sum(audio_length(int(m), cfg) for m in mel_lens) \
+        / cfg.sample_rate
 
 
 def draw_normal(generator, shape, device) -> torch.Tensor:
@@ -103,22 +112,25 @@ def vocoder_batch_device(params, mel_dev, mel_lens,
     frames instead of MEL_BUCKET (the JAX package's host wrappers reach
     that; its device entry always rounds up)."""
     device = resolve_device(device)
-    params = device_params(params, device, mesh)
     lens = np.asarray(mel_lens, np.int64)
     b = len(lens)
-    totals = lens + cfg.mel_pad_frames
-    pad_total = _pad(int(totals.max()), bucketed)
-    rows = dp_rows(mesh, b, "vocoder_batch_device")
-    mel_v = _padded_mel(mel_dev.to(device)[rows], lens[rows], pad_total, cfg)
-    noise = draw_rows(draw_normal, common.make_generator(seed, device),
-                      (b, cfg.noise_ch, pad_total), device, rows)
-    audio = vmodel.vocoder_forward(
-        params, cfg, mel_v, noise,
-        torch.as_tensor(totals[rows], device=device), compute_dtype,
-        axis_group(mesh, "tp"))
-    if rows != slice(0, b):
-        audio = axis_group(mesh, "dp").all_gather(audio)
-    audio = audio.cpu().numpy()
+    with profiling.span("vocoder.forward", device,
+                        audio_s=_audio_s(lens, cfg)):
+        params = device_params(params, device, mesh)
+        totals = lens + cfg.mel_pad_frames
+        pad_total = _pad(int(totals.max()), bucketed)
+        rows = dp_rows(mesh, b, "vocoder_batch_device")
+        mel_v = _padded_mel(mel_dev.to(device)[rows], lens[rows], pad_total,
+                            cfg)
+        noise = draw_rows(draw_normal, common.make_generator(seed, device),
+                          (b, cfg.noise_ch, pad_total), device, rows)
+        audio = vmodel.vocoder_forward(
+            params, cfg, mel_v, noise,
+            torch.as_tensor(totals[rows], device=device), compute_dtype,
+            axis_group(mesh, "tp"))
+        if rows != slice(0, b):
+            audio = axis_group(mesh, "dp").all_gather(audio)
+    (audio,) = download(audio)
     return [audio[i, :audio_length(int(lens[i]), cfg)]
             for i in range(len(lens))]
 
@@ -155,17 +167,19 @@ def vocoder(params, mel: np.ndarray, cfg: VocoderConfig = VocoderConfig(),
     if rng is None:
         return vocoder_batch(params, [mel], cfg, seed, compute_dtype,
                              bucketed, device=device)[0]
-    params = device_params(params, device)
     n_mel, m = mel.shape
-    total = m + cfg.mel_pad_frames
-    pad_total = _pad(total, bucketed)
-    mel_in = np.zeros((1, n_mel, pad_total), np.float32)
-    mel_in[0, :, :m] = denormalize_tacotron_mel(mel)
-    mel_in[0, :, m:total] = MEL_PAD_VALUE
-    noise = np.zeros((1, cfg.noise_ch, pad_total), np.float32)
-    noise[0, :, :total] = rng.normal_f32(cfg.noise_ch * total).reshape(
-        cfg.noise_ch, total)
-    audio = vmodel.vocoder_forward(
-        params, cfg, torch.as_tensor(mel_in, device=device),
-        torch.as_tensor(noise, device=device), total, compute_dtype)
-    return audio[0, :audio_length(m, cfg)].cpu().numpy()
+    with profiling.span("vocoder.forward", device,
+                        audio_s=_audio_s([m], cfg)):
+        params = device_params(params, device)
+        total = m + cfg.mel_pad_frames
+        pad_total = _pad(total, bucketed)
+        mel_in = np.zeros((1, n_mel, pad_total), np.float32)
+        mel_in[0, :, :m] = denormalize_tacotron_mel(mel)
+        mel_in[0, :, m:total] = MEL_PAD_VALUE
+        noise = np.zeros((1, cfg.noise_ch, pad_total), np.float32)
+        noise[0, :, :total] = rng.normal_f32(cfg.noise_ch * total).reshape(
+            cfg.noise_ch, total)
+        audio = vmodel.vocoder_forward(
+            params, cfg, torch.as_tensor(mel_in, device=device),
+            torch.as_tensor(noise, device=device), total, compute_dtype)
+    return download(audio[0, :audio_length(m, cfg)])[0]

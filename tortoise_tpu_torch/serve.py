@@ -13,6 +13,15 @@
 - A device lock serializes the worker's batches and the streams' chunks;
   a stream holds it only while a chunk is computed.
 - Each request carries its own voice latent.
+- ``stats()`` (``/healthz``): batches, rows, padded rows, failed batches,
+  streams, the queue's depth, and the requests admitted to a batch with
+  their summed and longest wait in the queue (``queue_wait_s``,
+  ``queue_wait_max_s``).
+- With ``TORTOISE_TRACE_DIR`` set, ``main`` serves under
+  ``torch.profiler`` and writes a Chrome trace there when it stops: each
+  batch is the span ``serve.batch`` over its ``synthesize_batch``, a
+  stream's chunks are ``stream.*`` spans (``utils.profiling``). The
+  profiler holds every event until then, so trace a short session.
 
 Determinism: a batch is seeded by its FIRST request's seed and row b
 draws row b of the batch's streams, so a request's output depends on the
@@ -54,6 +63,7 @@ from tortoise_tpu_torch.pipeline.synthesize import (
     TortoiseModels,
     synthesize_batch,
 )
+from tortoise_tpu_torch.utils import profiling
 
 B_BUCKETS = (1, 2, 4, 8, FUSED_MAX_BATCH)
 MAX_BODY = 16 << 20  # bytes of JSON a request may send
@@ -101,6 +111,7 @@ class _Request:
     seed: int
     sampler: tuple = None  # normalized (temp, top_k, p_drop, penalty)
     future: Future = field(default_factory=Future)
+    submitted: int = field(default_factory=time.monotonic_ns)
 
 
 def _broadcast_job(job):
@@ -173,7 +184,8 @@ class SynthesisServer:
         self._stop_lock = threading.Lock()
         self._closed = True  # set by start()/stop() under _lock
         self._stats = {"batches": 0, "rows": 0, "padded_rows": 0,
-                       "failed_batches": 0}
+                       "failed_batches": 0, "admitted": 0,
+                       "queue_wait_s": 0.0, "queue_wait_max_s": 0.0}
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -399,6 +411,7 @@ class SynthesisServer:
             first = self._queue.get(timeout=0.1)
         except queue.Empty:
             return []
+        self._admit(first)
         batch = [first]
         deadline = time.monotonic() + self.max_wait_ms / 1e3
         while len(batch) < self.max_batch:
@@ -409,7 +422,17 @@ class SynthesisServer:
                 batch.append(self._queue.get(timeout=remaining))
             except queue.Empty:
                 break
+            self._admit(batch[-1])
         return batch
+
+    def _admit(self, req: _Request) -> None:
+        """Count a request taken from the queue and its wait there."""
+        wait = (time.monotonic_ns() - req.submitted) / 1e9
+        with self._lock:
+            self._stats["admitted"] += 1
+            self._stats["queue_wait_s"] += wait
+            self._stats["queue_wait_max_s"] = max(
+                self._stats["queue_wait_max_s"], wait)
 
     def _run(self) -> None:
         admitted: List[_Request] = []
@@ -459,7 +482,8 @@ class SynthesisServer:
         bucket = self._bucket(n)
         rows = batch + [batch[-1]] * (bucket - n)  # repeat-pad rows
         try:
-            with self._device_lock:
+            with self._device_lock, profiling.span("serve.batch",
+                                                   self.device):
                 results = self._synthesize(
                     [r.tokens for r in rows], [r.voice for r in rows],
                     batch[0].seed, sampler)
@@ -711,9 +735,11 @@ def main(argv=None) -> int:
         print(f"serving on http://{args.host}:{httpd.server_address[1]} "
               f"({device}, max_batch={args.max_batch}, "
               f"wait={args.max_wait_ms}ms)", flush=True)
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        with profiling.trace():
+            try:
+                httpd.serve_forever()
+            except KeyboardInterrupt:
+                pass
     finally:
         if httpd is not None:
             httpd.server_close()
