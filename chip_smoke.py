@@ -42,14 +42,20 @@ Phases (any failure exits nonzero before the result line):
    keys valid and a ragged row; timed beside its plain version, its
    quantize pass and its attention kernel each alone, kernel B on the
    same qkv, its bound and the design's floor), at head widths 32 and
-   128 and on one head at 28,000 keys; then the A/B script
+   128 and on one head at 28,000 keys; kernel G, the denoiser's group
+   norm with its chain, at (2, 2176, 1024) in 32 groups with 40 padded
+   frames on both planes, as attn_norm and as res_out_norm (FiLM, SiLU),
+   against its plain twin's f32 result (1e-5 of max |out| in f32, one
+   bf16 rounding in bf16), two calls bit-equal, timed beside the twin,
+   the eager chain it replaced and its byte bound; then the A/B script
    scripts/torch_ubench_attn_int8_ab.py
    in a fresh process, whose launch counts of F and B must equal the
    calls it made (F's launches in the result line are that run's);
 4. end to end at full production width (random weights, bf16 + int8
    unless named, stand-in tokens), eleven requests, each with the launch
    counts set to 0
-   before it and read after it: request 1 through the CLI at
+   before it and read after it, each of which must launch kernel G
+   (every request runs the denoiser): request 1 through the CLI at
    --batch-size 1 must launch kernels A and B, request 2 at --batch-size
    8 must also launch kernel C (the latent pass); every request runs its
    sampling and denoising loops as CUDA graphs of one step
@@ -89,8 +95,9 @@ Phases (any failure exits nonzero before the result line):
    and a 2-row batch with finite audio of the vocoder's length that
    launches B and not A; request 9, the CLI on its default f32 plane (no
    --bf16, no --int8-weights) at request 1's settings, must launch kernel
-   B on the split-TF32 body 1,044 times (REQUEST_B_LAUNCHES), beside the
-   same request with --no-flash (no kernel) and one f32 denoiser eval
+   B on the split-TF32 body 1,044 times (REQUEST_B_LAUNCHES) and kernel
+   G 3,685 times (REQUEST_G_LAUNCHES), beside the same request with
+   --no-flash (no attention kernel, G as often) and one f32 denoiser eval
    with flash on and off (1e-4 of max |out|, both timed); request 10,
    the port's benchmark (``python -m tortoise_tpu_torch.bench``) in a
    fresh process with one timed pass, the batch of 8 and its warm-start
@@ -108,8 +115,9 @@ Phases (any failure exits nonzero before the result line):
    width, reps and steps cut; they must run to their results with kernel
    A in decode on the int8 plane and not on the bf16-weights plane, C in
    the forced prefill and latent passes and not in the plain ones, B in
-   the denoiser eval with flash on and no kernel with it off, E with
-   use_pallas_lvc and none without, and the gn script's patch gone;
+   the denoiser eval with flash on and no attention kernel with it off
+   (G either way), E with use_pallas_lvc and none without, and the gn
+   script's patch gone;
 6. small-input agreement: the tiny f32 parity plane on the card against
    the same run on the CPU (same tokens, mel and audio within tolerance),
    on the default configs and on the fallback + fused-LVC configs; the
@@ -121,8 +129,9 @@ Phases (any failure exits nonzero before the result line):
    synthesize_batch (3 ragged rows) and stream_synthesize with the
    random draws of both runs from one numpy source.
 
-The line before the last is ``{"kernels": [...]}`` (A-F, and "Bf":
-kernel B on an f32 qkv, the split-TF32 body, counted in request 9),
+The line before the last is ``{"kernels": [...]}`` (A-F, "Bf":
+kernel B on an f32 qkv, the split-TF32 body, counted in request 9, and
+G, which ports no Pallas kernel),
 preceded by the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. ``--profile`` instead profiles a
 decode step and a diffusion step after phase 3 (device time by kernel,
@@ -298,6 +307,12 @@ F_WIDTHS = (32, 128)
 # could not stage in a block (it took at most 26,368 padded keys at width
 # 64)
 F_LONG = 28000
+# G: the denoiser's CFG map (b, t, channels, groups), its last 40 frames
+# padded, on both planes; the chains of attn_norm (mask only) and
+# res_out_norm (mask, FiLM, SiLU); the first of each plane is timed
+G_SHAPE = (2, 2176, 1024, 32)
+G_PADDED = 40
+G_CHAINS = (("res_out_norm", "rows", True), ("attn_norm", None, False))
 
 
 def bf16_qkv(torch, g, b, t, h, d):
@@ -385,6 +400,42 @@ def lvc_inputs(torch, g, b, L, hop):
             stacked[:, 1], torch.randn((b, 64, L), generator=g,
                                        device="cuda"),
             torch.randn((b, 32, t), generator=g, device="cuda"), hop)
+
+
+def gn_inputs(torch, g, dtype, film):
+    """Kernel G's arguments at G_SHAPE: (x, groups, w, b, eps, mask) and
+    the keywords (film, silu) of one of G_CHAINS' FiLM forms."""
+    b, t, c, groups = G_SHAPE
+    dev = torch.device("cuda")
+    x = (torch.randn((b, t, c), generator=g, device=dev) * 1.7 + 0.3).to(
+        dtype)
+    w = 1 + 0.2 * torch.randn(c, generator=g, device=dev)
+    bias = 0.2 * torch.randn(c, generator=g, device=dev)
+    mask = torch.arange(t, device=dev)[None, :].expand(b, t) < t - G_PADDED
+    pair = None
+    if film is not None:
+        pair = tuple((0.5 * torch.randn((b, c), generator=g, device=dev))
+                     .to(dtype) for _ in range(2))
+    return (x, groups, w, bias, 1e-5, mask), pair
+
+
+def gn_eager_chain(torch, x, groups, w, bias, eps, mask, film, silu):
+    """What kernel G replaced in models/diffusion.py: ops.basic's
+    group_norm_tc, then FiLM, SiLU and the mask as eager ops in x's
+    dtype."""
+    import torch.nn.functional as F
+
+    from tortoise_tpu_torch.ops.basic import group_norm_tc
+
+    y = group_norm_tc(x, groups, w, bias, eps, mask=mask,
+                      fast=x.dtype == torch.bfloat16)
+    if film is not None:
+        scale, shift = film
+        y = y * (1.0 + scale)[:, None, :] + shift[:, None, :]
+    if silu:
+        y = torch.where(mask[:, :, None], F.silu(y),
+                        torch.zeros((), dtype=y.dtype, device=y.device))
+    return y
 
 
 def _kernel_a_weights(torch):
@@ -1183,6 +1234,59 @@ def check_kernel_e(torch, results):
                         bound_by=max(bound_by, key=bound_by.get), **main)
 
 
+def check_kernel_g(torch, results):
+    """Kernel G at G_SHAPE on both planes, each of G_CHAINS: against its
+    plain twin's f32 result (f32 maps at 1e-5 of max |out|, bf16 ones
+    within one bf16 rounding plus 1e-5 of max |out|), two calls bit-equal,
+    then timed beside the twin, the eager chain it replaced and its bound
+    (x and the mask read once, the output written once). The bf16
+    res_out_norm chain makes the result line."""
+    from tortoise_tpu_torch.ops.cuda import group_norm as K
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, film, silu in G_CHAINS:
+            args, pair = gn_inputs(torch, g, dtype, film)
+            kw = dict(film=pair, silu=silu)
+            got = K.group_norm_act(*args, **kw)
+            again = K.group_norm_act(*args, **kw)
+            want = K.group_norm_act_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"G {name} {dtype}: two calls differ")
+            err = (got.float() - want).abs()
+            top = float(want.abs().max())
+            if dtype == torch.float32:
+                past = float(err.max()) - 1e-5 * top
+            else:
+                a = want.abs().clamp_min(torch.finfo(torch.float32).tiny)
+                ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+                past = float((err - 0.5 * ulp).max()) - 1e-5 * top
+            label = f"G {name} ({dtype}, {tuple(args[0].shape)})"
+            print(f"  {label}: max_abs_err={float(err.max()):.3e} rel="
+                  f"{float(err.max()) / top:.3e}, past its tolerance by "
+                  f"{past:.3e}")
+            if past > 0:
+                fail(f"{label} is past its tolerance by {past:.3e}")
+            worst = max(worst, float(err.max()) / top)
+            k_ms = cuda_ms(torch, lambda: K.group_norm_act(*args, **kw))
+            p_ms = cuda_ms(torch, lambda: K.group_norm_act_plain(*args, **kw),
+                           iters=3)
+            e_ms = cuda_ms(torch, lambda: gn_eager_chain(
+                torch, *args, pair, silu), iters=3)
+            g_bound = bound(nbytes(args[0], args[5], got))
+            print(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+                  f"eager chain it replaced {e_ms:.3f} ms, bound "
+                  f"{g_bound['bound_ms']:.4f} ms ({g_bound['bound_by']}); "
+                  f"plan {K.gn_plan(*args[0].shape[:2])}")
+            if dtype == torch.bfloat16 and name == G_CHAINS[0][0]:
+                results["G"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                                    eager_chain_ms=e_ms, **g_bound)
+            del args, pair, got, again, want, err
+    results["G"]["max_abs_err"] = worst
+
+
 def check_f32_packed_and_causal(torch, results):
     """Kernels B and C on an f32 qkv, as the Pallas kernels take it (the
     default CLI's plane, request 9): the split-TF32 body of
@@ -1613,6 +1717,10 @@ def check_graph_loops(torch, smi, reset_launch_counts, launch_counts):
 # attention blocks once, then 13 attention layers (3 integrator + 10 main)
 # in each of 80 denoising steps
 REQUEST_B_LAUNCHES = 4 + 13 * 80
+# kernel G's in the same request: code_norm and the conditioner's 4
+# attention norms once, then 46 group norms (3 x 3 integrator, 10 x 3 main,
+# 3 x 2 tail, out_norm) in each of 80 denoising steps
+REQUEST_G_LAUNCHES = 5 + 46 * 80
 
 
 def run_request_9(torch, models, out_dir, smi, reset_launch_counts,
@@ -1621,8 +1729,9 @@ def run_request_9(torch, models, out_dir, smi, reset_launch_counts,
     request 1's tokens, seed and batch size: the f32 parity plane, where
     the denoiser runs kernel B on the split-TF32 body, as the JAX CLI
     runs its Pallas kernel B on an f32 qkv. It must launch B on that body
-    REQUEST_B_LAUNCHES times; then the same request with --no-flash (no
-    kernel) beside it; then one full-width f32 denoiser eval (one CFG
+    REQUEST_B_LAUNCHES times and kernel G REQUEST_G_LAUNCHES times; then
+    the same request with --no-flash (no attention kernel; G as before)
+    beside it; then one full-width f32 denoiser eval (one CFG
     step, B = 2, T = 2176, ``models``' diffusion weights) with use_flash
     on and off on the same inputs, held within 1e-4 of max |out| and both
     timed. Returns request 9's launch counts."""
@@ -1635,16 +1744,19 @@ def run_request_9(torch, models, out_dir, smi, reset_launch_counts,
     reset_launch_counts()
     run_request(torch, 1, out_dir, smi, plane=(), label="9 (f32 plane)")
     counts = launch_counts()
-    for key in ("flash_attention_packed", "flash_attention_f32"):
-        if counts[key] != REQUEST_B_LAUNCHES:
+    for key, want in (("flash_attention_packed", REQUEST_B_LAUNCHES),
+                      ("flash_attention_f32", REQUEST_B_LAUNCHES),
+                      ("group_norm_act", REQUEST_G_LAUNCHES)):
+        if counts[key] != want:
             fail(f"request 9 launched {key} {counts[key]} times, want "
-                 f"{REQUEST_B_LAUNCHES}: {counts}")
+                 f"{want}: {counts}")
     reset_launch_counts()
     run_request(torch, 1, out_dir, smi, plane=("--no-flash",),
                 label="9 with --no-flash (f32 plane, plain attention)")
     off = launch_counts()
-    if any(off.values()):
-        fail(f"request 9 with --no-flash launched a kernel: {off}")
+    if off.pop("group_norm_act") != REQUEST_G_LAUNCHES or any(off.values()):
+        fail(f"request 9 with --no-flash launched an attention kernel, or "
+             f"G other than {REQUEST_G_LAUNCHES} times: {off}")
     dcfg = models.diffusion_cfg
     params = dst._prepare_params(models.diffusion_params, False, "cuda")
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1803,15 +1915,15 @@ def run_ubench_phase(torch, models, smi, reset_launch_counts) -> None:
     Each must run to its result; the launches must show kernel A in
     decode on the int8 plane and not on the bf16-weights plane, kernel C
     in the forced prefill and latent passes (and not in the plain ones),
-    kernel B with flash on and no kernel with it off, kernel E with
-    use_pallas_lvc and none without; the group-norm patch must be gone
-    after the gn script."""
+    kernel B with flash on and no attention kernel with it off (kernel G
+    either way), kernel E with use_pallas_lvc and none without; the
+    group-norm patch must be gone after the gn script."""
     import dataclasses
 
     import numpy as np
 
     from tortoise_tpu_torch.models import diffusion as dm
-    from tortoise_tpu_torch.ops import basic
+    from tortoise_tpu_torch.ops.cuda import group_norm
 
     dev = torch.device("cuda")
     dcfg = dataclasses.replace(models.diffusion_cfg, use_flash=True)
@@ -1825,8 +1937,8 @@ def run_ubench_phase(torch, models, smi, reset_launch_counts) -> None:
             dcfg, n_sample_timesteps=8), lat, dev, runs=2, card=smi)
     res["gn"] = ubench("gn").run(models.diffusion_params, dcfg, 2304, dev,
                                  reps=1, card=smi)
-    if dm.group_norm_tc is not basic.group_norm_tc:
-        fail("the gn script left models.diffusion.group_norm_tc patched")
+    if dm.group_norm_act is not group_norm.group_norm_act:
+        fail("the gn script left models.diffusion.group_norm_act patched")
     im = ubench("int8_matmul")
     res["int8_matmul"] = im.run(im.M, im.SHAPES, dev, reps=10, card=smi)
     res["decode"] = ubench("decode").run(
@@ -1861,7 +1973,7 @@ def run_ubench_phase(torch, models, smi, reset_launch_counts) -> None:
           for k in pre),
         (diff["flash"]["launches"].get(b, 0) > 0
          and diff["flash_no_mask"]["launches"].get(b, 0) > 0
-         and not diff["plain"]["launches"],
+         and set(diff["plain"]["launches"]) == {"group_norm_act"},
          "diffusion launches: " + ", ".join(
              f"{k} {diff[k]['launches']}"
              for k in ("flash", "plain", "flash_no_mask"))),
@@ -3148,6 +3260,7 @@ def main(argv=None) -> int:
     check_wide_heads(torch)
     check_f32_body(torch)
     check_kernel_e(torch, results)
+    check_kernel_g(torch, results)
     check_f32_packed_and_causal(torch, results)
     check_kernel_f(torch, results)
     ab = run_int8_ab(smi)
@@ -3185,14 +3298,19 @@ def main(argv=None) -> int:
                "flash_attention_f32",
                "tortoise_tpu_torch/csrc/flash_attention_bhtd.cu",
                pallas + "flash_attention.py:269"),
+        # no Pallas kernel: XLA fuses group_norm_tc and the chain after it
+        "G": ("group_norm_act", "group_norm_act",
+              "tortoise_tpu_torch/csrc/group_norm.cu", None),
     }
     # each request is one path: counts set to 0 just before it, read just
     # after. Kernels every request of its path must launch, and kernels
     # it must not launch:
-    needs = {1: ("A", "B"), 2: ("A", "B", "C"), 3: ("A", "D1", "E"),
-             4: ("A", "B", "C"), 5: ("A", "B", "E"), 6: ("A", "B"),
-             7: ("A", "B", "C"), 8: ("A", "B"), 9: ("B", "Bf"),
-             10: ("A", "B", "C"), 11: ("A", "B")}
+    needs = {1: ("A", "B", "G"), 2: ("A", "B", "C", "G"),
+             3: ("A", "D1", "E", "G"), 4: ("A", "B", "C", "G"),
+             5: ("A", "B", "E", "G"), 6: ("A", "B", "G"),
+             7: ("A", "B", "C", "G"), 8: ("A", "B", "G"),
+             9: ("B", "Bf", "G"), 10: ("A", "B", "C", "G"),
+             11: ("A", "B", "G")}
     print("[4/6] end to end at full production width (random weights, "
           "bf16 + int8)", flush=True)
     per_request = {}

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Device and host times of the port's kernels A, B, C, D1, D2, E and F
-on one NVIDIA card, for the tortoise_tpu_torch of the checkout at
+"""Device and host times of the port's kernels A, B, C, D1, D2, E, F and
+G on one NVIDIA card, for the tortoise_tpu_torch of the checkout at
 --root, at the phase-3 shapes and inputs of this checkout's
 chip_smoke.py (its kernel-A weights and inputs at B = 1 and 16, B_CASES,
-C_SHAPE, D1_CASES, WIDE, D2_CASES, E_CASES, F_SHAPE and input builders;
-f32 inputs: B and C, D2 causal and D1 at FMA_CASES, and every other
-D2_CASES mode, where the checkout's kernels take them; F only where the
-checkout has it); with --request3 N, also N runs of chip_smoke's request 3
+C_SHAPE, D1_CASES, WIDE, D2_CASES, E_CASES, F_SHAPE, G_SHAPE, G_CHAINS
+and input builders; f32 inputs: B and C, D2 causal and D1 at FMA_CASES,
+and every other D2_CASES mode, where the checkout's kernels take them; F
+and G only where the checkout has them, and on every checkout "G eager
+chain", the group norm chain as eager ops, which kernel G replaced in the
+denoiser); with --request3 N, also N runs of chip_smoke's request 3
 (synthesize() on the diffusion fallback and the fused LVC: kernels A, D1
 and E). Two checkouts compare inside one call, in turns:
 
@@ -279,6 +281,20 @@ def main() -> int:
             e_args = smoke.lvc_inputs(torch, g, b, L, hop)
             emit("E", [b, L, hop], lambda: LV.lvc_gated_residual(*e_args))
             del e_args
+    try:
+        from tortoise_tpu_torch.ops.cuda import group_norm as GN
+    except ImportError:  # a checkout from before kernel G
+        GN = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, film, silu in smoke.G_CHAINS:
+            gn_args, pair = smoke.gn_inputs(torch, g, dtype, film)
+            shape = [*gn_args[0].shape, gn_args[1], str(dtype)[6:], name]
+            if GN is not None:
+                emit("G", shape, lambda: GN.group_norm_act(
+                    *gn_args, film=pair, silu=silu))
+            emit("G eager chain", shape, lambda: smoke.gn_eager_chain(
+                torch, *gn_args, pair, silu))
+            del gn_args, pair
     if args.request3:
         from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels
 

@@ -9,20 +9,23 @@ One CFG denoise eval (batch 2, T = 2304; ``--small``: the tiny config at
 T = 64), bf16 + int8, kernel B on the card, in three variants run in
 turns, best of ``reps`` (5) each after a warmup call:
 
-  base       the real eval;
-  gn-affine  ``group_norm_tc`` patched to ``x*w+b``: no statistics
-             pass and no normalization;
-  gn-skip    ``group_norm_tc`` patched to the identity.
+  base       the real eval: every group norm one call of
+             ``group_norm_act`` (kernel G on the card);
+  gn-affine  the norm patched to ``x*w+b``: no statistics pass and no
+             normalization;
+  gn-skip    the norm patched to the identity.
 
-base - gn-affine bounds what a one-pass fused group-norm kernel could
-save (it must still read x once and write it once); base - gn-skip
-bounds all group-norm work. The port's denoiser is eager, so each
-variant prints its wall (CUDA events around the
-eval) and its device-busy time (its kernel times summed under
-``torch.profiler``), each with its delta against base: a wall delta
-without a busy delta is launch overhead.
+A patched variant (``as_op``) runs in place of ``group_norm_act``: its
+norm on the f32 map, then the op's own FiLM, SiLU and mask in plain
+PyTorch (``group_norm.activate``), so on the card it runs eager
+elementwise kernels where the base runs kernel G. base - gn-skip is what
+kernel G costs beyond such a chain. The port's denoiser is eager, so
+each variant prints its wall (CUDA events around the eval) and its
+device-busy time (its kernel times summed under ``torch.profiler``),
+each with its delta against base: a wall delta without a busy delta is
+launch overhead.
 
-The patch replaces ``tortoise_tpu_torch.models.diffusion.group_norm_tc``
+The patch replaces ``tortoise_tpu_torch.models.diffusion.group_norm_act``
 (the name the denoiser calls) only for the calls of its variant
 (``patched``) and puts it back in a ``finally``.
 
@@ -62,19 +65,33 @@ def gn_skip(x, n_groups, w=None, b=None, eps=1e-5, mask=None, fast=False):
 VARIANTS = {"base": None, "gn-affine": gn_affine, "gn-skip": gn_skip}
 
 
-@contextlib.contextmanager
-def patched(module, gn):
-    """``module.group_norm_tc`` replaced by ``gn`` (None: left as it is)
-    inside the block, and put back after it."""
+def as_op(gn):
+    """``group_norm_act`` with the norm ``gn`` (a ``group_norm_tc``-like
+    function) in place of its own; None for None."""
     if gn is None:
+        return None
+    from tortoise_tpu_torch.ops.cuda.group_norm import activate
+
+    def op(x, n_groups, w, b, eps=1e-5, mask=None, *, film=None,
+           silu=False):
+        y = gn(x.float(), n_groups, w, b, eps, mask)
+        return activate(y, mask, film, silu).to(x.dtype)
+    return op
+
+
+@contextlib.contextmanager
+def patched(module, fn, name="group_norm_act"):
+    """``module.<name>`` replaced by ``fn`` (None: left as it is) inside
+    the block, and put back after it."""
+    if fn is None:
         yield
         return
-    real = module.group_norm_tc
-    module.group_norm_tc = gn
+    real = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        module.group_norm_tc = real
+        setattr(module, name, real)
 
 
 def inputs(cfg, t: int, device):
@@ -103,7 +120,7 @@ def run(params, cfg, t: int, device, reps: int = 5, card: str = "") -> dict:
 
     def call(gn):
         def ev():
-            with patched(dmodel, gn), torch.inference_mode():
+            with patched(dmodel, as_op(gn)), torch.inference_mode():
                 return dmodel.denoise(p, cfg, x, code, 1234, buckets,
                                       compute_dtype=torch.bfloat16)
         return ev

@@ -10,7 +10,10 @@ checks of B, C and D), 1e-5 for the split-TF32 body on every f32 route
 (``F32_TOL``: three TF32 products a product keep ~1e-6 of max |out|);
 1e-2 for kernel F (round(127 p) on either side of a tie);
 the in-kernel sampler must pick the plain sampler's token on the
-kernel's own logits.
+kernel's own logits. Kernel G (the group norm and its chain) against
+its plain twin's f32 result: 1e-5 of max |out| on f32 maps, within one
+bf16 rounding (half an ulp, plus 1e-5 of max |out| for the f32 sums'
+order) on bf16 maps.
 """
 
 import dataclasses
@@ -25,6 +28,7 @@ from tortoise_tpu_torch.ops.basic import pdot_int8act
 from tortoise_tpu_torch.ops.cuda import decode_trunk as TA
 from tortoise_tpu_torch.ops.cuda import flash_attention as TF
 from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as TI
+from tortoise_tpu_torch.ops.cuda import group_norm as TG
 from tortoise_tpu_torch.ops.cuda import lvc as TL
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline.ar_stage import quantize_ar
@@ -949,4 +953,144 @@ def test_denoise_graph_replays_the_eager_loop_on_card(cuda_device, b):
         assert torch.equal(got, want)
         assert c == want_c
     assert len(graphs.entries()) == 1
+    graphs.clear()
+
+
+def _gn_inputs(b, t, c, dtype, masked, film, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn((b, t, c), generator=g, device=device) * 1.7
+         + 0.3).to(dtype)
+    w = 1 + 0.2 * torch.randn(c, generator=g, device=device)
+    bias = 0.2 * torch.randn(c, generator=g, device=device)
+    mask = None
+    if masked:  # ragged rows, the last one cut to a few frames
+        lens = torch.tensor([t - (t * i) // max(b, 2) for i in range(b)],
+                            device=device).clamp_min(3)
+        mask = torch.arange(t, device=device)[None, :] < lens[:, None]
+    pair = None
+    if film is not None:
+        shape = (b, c) if film == "rows" else (c,)
+        pair = tuple((0.5 * torch.randn(shape, generator=g, device=device))
+                     .to(dtype) for _ in range(2))
+    return x, w, bias, mask, pair
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (8 significant bits)."""
+    a = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _assert_gn_close(got, want):
+    """got (bf16 or f32) against the plain twin's f32 result."""
+    err = (got.float() - want).abs()
+    top = want.abs().max()
+    if got.dtype == torch.float32:
+        assert err.max() <= 1e-5 * top, (err.max(), top)
+    else:
+        assert (err <= 0.5 * _bf16_ulp(want) + 1e-5 * top).all(), \
+            (err.max(), top)
+
+
+# (b, t, c, groups): the denoiser's map; T not a whole number of chunks; a
+# tp rank's half and a tiny config's local channels; 16 CFG rows x 2
+GN_SHAPES = [(2, 2176, 1024, 32), (2, 333, 1024, 32), (2, 300, 512, 16),
+             (2, 97, 64, 2), (32, 200, 1024, 32)]
+# (mask, FiLM, SiLU): attn_norm; res_in_norm and out_norm; res_out_norm
+# (with and without a mask); code_norm
+GN_CHAINS = [(False, None, False), (True, None, True), (True, "rows", True),
+             (False, "rows", True), (True, "shared", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,c,groups", GN_SHAPES)
+@pytest.mark.parametrize("masked,film,silu", GN_CHAINS)
+def test_group_norm_kernel_matches_plain_on_card(cuda_device, dtype, b, t, c,
+                                                 groups, masked, film, silu):
+    """Kernel G against its plain twin's f32 result, two calls bit-equal,
+    one count a call."""
+    x, w, bias, mask, pair = _gn_inputs(b, t, c, dtype, masked, film,
+                                        cuda_device, b * t + c)
+    before = TG.group_norm_act.launches
+    got = TG.group_norm_act(x, groups, w, bias, 1e-5, mask, film=pair,
+                            silu=silu)
+    again = TG.group_norm_act(x, groups, w, bias, 1e-5, mask, film=pair,
+                              silu=silu)
+    torch.cuda.synchronize()
+    assert TG.group_norm_act.launches == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = TG.group_norm_act_plain(x, groups, w, bias, 1e-5, mask, film=pair,
+                                   silu=silu)
+    _assert_gn_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_group_norm_kernel_gives_a_tp_ranks_bits_on_card(cuda_device, dtype,
+                                                         tp):
+    """A tp rank's res_out_norm (its C / tp channels in its groups / tp
+    groups, its slice of the FiLM) gives the bits of the same channels of
+    the single rank's call: kernel G's sums meet in an order that reads
+    neither C nor the groups."""
+    b, t, c, groups = 4, 2176, 1024, 32
+    x, w, bias, mask, pair = _gn_inputs(b, t, c, dtype, True, "rows",
+                                        cuda_device, 9)
+    whole = TG.group_norm_act(x, groups, w, bias, 1e-5, mask, film=pair,
+                              silu=True)
+    step = c // tp
+    for lo in range(0, c, step):
+        sl = slice(lo, lo + step)
+        local = TG.group_norm_act(x[..., sl].contiguous(), groups // tp,
+                                  w[sl], bias[sl], 1e-5, mask,
+                                  film=tuple(f[:, sl] for f in pair),
+                                  silu=True)
+        assert torch.equal(local, whole[..., sl]), (lo, tp)
+
+
+@pytest.mark.cuda
+def test_denoise_runs_kernel_g_at_every_group_norm_on_card(cuda_device):
+    """At the published depths (3 integrator layers, 10 main, 3 tail
+    resblocks; narrow widths), a conditioner pass launches kernel G 5
+    times and a denoising step 46 times, eagerly and in the step graph,
+    whose ``launches`` hold 46 and whose replays add them."""
+    from tortoise_tpu_torch.config import DiffusionConfig
+    from tortoise_tpu_torch.io.checkpoint import random_diffusion_params
+    from tortoise_tpu_torch.models import diffusion as TDM
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tortoise_tpu_torch.pipeline import common, graphs
+    from tortoise_tpu_torch.pipeline import diffusion_stage as DS
+
+    cfg = dataclasses.replace(DiffusionConfig(), d_model=128, n_head=2,
+                              timestep_dim=128, use_flash=True,
+                              n_sample_timesteps=4)
+    params = DS._prepare_params(random_diffusion_params(cfg, 2), True,
+                                cuda_device)
+    rng = np.random.default_rng(0)
+    lat = torch.tensor(rng.normal(0, 1, (1, 32, 128)).astype(np.float32),
+                       device=cuda_device)
+    lat_mask = torch.arange(32, device=cuda_device)[None, :] < 27
+    reset_launch_counts()
+    cond, uncond = TDM.code_embeddings(params, cfg, lat, None, 128, 27, 120,
+                                       lat_mask, torch.bfloat16)
+    assert launch_counts()["group_norm_act"] == 5
+    code = torch.cat([cond, uncond], dim=0)
+    x0 = torch.tensor(rng.normal(0, 1, (1, cfg.n_mel, 128)).astype(
+        np.float32), device=cuda_device)
+    mask = torch.arange(128, device=cuda_device)[None, :] < 120
+    sched = DS.schedule_arrays(cfg, cuda_device)
+    graphs.clear()
+    for eager in (True, False):
+        reset_launch_counts()
+        gen = common.make_generator(3, cuda_device)
+        DS._denoise_loop(params, cfg, sched, code, x0, None, mask,
+                         lambda: DS.draw_normal(gen, tuple(x0.shape),
+                                                cuda_device),
+                         torch.bfloat16, True, eager=eager)
+        torch.cuda.synchronize()
+        assert launch_counts()["group_norm_act"] == 46 * 4, eager
+    (_, graph), = graphs.entries()
+    assert graph.launches["group_norm_act"] == 46
+    assert (graph.warmups, graph.captures, graph.replays) == (1, 1, 2)
     graphs.clear()

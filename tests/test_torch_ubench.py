@@ -8,8 +8,9 @@ JAX package.
 - The load test's request plan against ``scripts/ubench_serve.py``'s
   draw order, replayed here with numpy: equal tokens and delays.
 - The group-norm variants of ``torch_ubench_gn.py`` on the tiny f32
-  denoiser against the JAX ``denoise`` with its ``group_norm_tc``
-  patched the same way, at 1e-4 of max |out|.
+  denoiser (the port's ``group_norm_act`` with the variant's norm) against
+  the JAX ``denoise`` with its ``group_norm_tc`` patched to the same
+  norm, at 1e-4 of max |out|.
 - The four int8-matmul variants at a cut M against the JAX package's
   ``pdot`` / ``pdot_int8act``: within one bf16 ulp, and the int32 sums
   of ``torch._int_mm`` exact.
@@ -139,9 +140,10 @@ def tiny_denoiser():
 
 @pytest.mark.parametrize("variant", ["base", "gn-affine", "gn-skip"])
 def test_gn_variants_against_jax(tiny_denoiser, variant):
-    """Each variant of torch_ubench_gn.py on the tiny f32 denoiser equals
-    the JAX denoise with the JAX module's group_norm_tc patched by the
-    same function, at 1e-4 of max |out|; both names are restored."""
+    """Each variant of torch_ubench_gn.py on the tiny f32 denoiser (the
+    port's group_norm_act with the variant's norm) equals the JAX denoise
+    with the JAX module's group_norm_tc patched by the same function, at
+    1e-4 of max |out|; both names are restored."""
     import tortoise_tpu.models.diffusion as JDM
     import tortoise_tpu_torch.models.diffusion as TDM
     from tortoise_tpu.ops.relpos import relative_position_buckets
@@ -154,14 +156,15 @@ def test_gn_variants_against_jax(tiny_denoiser, variant):
     bk = relative_position_buckets(t, cfg.rel_pos_buckets,
                                    cfg.rel_pos_max_distance)
     fn = gn.VARIANTS[variant]
-    real = (TDM.group_norm_tc, JDM.group_norm_tc)
-    with gn.patched(TDM, fn), gn.patched(JDM, fn):
+    real = (TDM.group_norm_act, JDM.group_norm_tc)
+    with gn.patched(TDM, gn.as_op(fn)), \
+            gn.patched(JDM, fn, "group_norm_tc"):
         got = TDM.denoise(tree_to_torch(params), cfg, x, code, 1234,
                           torch.as_tensor(bk)).numpy()
         want = np.asarray(JDM.denoise(
             params, cfg, jnp.asarray(x.numpy()), jnp.asarray(code.numpy()),
             1234, jnp.asarray(bk)), np.float32)
-    assert (TDM.group_norm_tc, JDM.group_norm_tc) == real
+    assert (TDM.group_norm_act, JDM.group_norm_tc) == real
     assert np.isfinite(want).all()
     err = np.abs(got - want).max()
     assert err <= 1e-4 * np.abs(want).max(), (variant, err)

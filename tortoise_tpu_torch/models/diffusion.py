@@ -15,6 +15,10 @@ attention goes through a kernel of ``ops.cuda.flash_attention`` — kernel
 B when the packed route takes the head layout (``use_packed``), else
 kernel D1 (the JAX package's fallback ``flash_attention`` route): on a
 CUDA tensor the hand-written kernel, on the CPU its plain version.
+Every group norm, with what follows it up to the next product (affine,
+FiLM, SiLU, the zeroing of padded frames), is one call of
+``ops.cuda.group_norm.group_norm_act`` (kernel G on a card, its plain
+twin on the CPU): 46 a denoiser eval, 5 a conditioner pass.
 
 Tensor parallelism (``tp``, an ``AxisGroup`` on the mesh's "tp" axis,
 with the tree from ``parallel.shard_tree``): each rank holds n_head/tp
@@ -34,12 +38,13 @@ import torch
 import torch.distributed as dist
 
 from tortoise_tpu_torch.config import DiffusionConfig
-from tortoise_tpu_torch.ops.basic import group_norm_tc, pdot, pdot_int8act, silu
+from tortoise_tpu_torch.ops.basic import pdot, pdot_int8act, silu
 from tortoise_tpu_torch.ops.conv import conv1d_nwc
 from tortoise_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
     flash_attention_packed,
 )
+from tortoise_tpu_torch.ops.cuda.group_norm import group_norm_act
 from tortoise_tpu_torch.ops.relpos import relpos_bias
 from tortoise_tpu_torch.parallel.mesh import local_count
 
@@ -95,9 +100,8 @@ def _attention(block, x, buckets, cfg: DiffusionConfig, mask=None,
     buckets (T, T) ids (used by the plain path only)."""
     b, t, c = x.shape
     h, dh = local_count(cfg.n_head, tp, "heads"), cfg.d_head
-    y = group_norm_tc(x, cfg.n_groups, block["attn_norm_w"],
-                      block["attn_norm_b"], cfg.gn_eps, mask=mask,
-                      fast=compute_dtype is not None)
+    y = group_norm_act(x, cfg.n_groups, block["attn_norm_w"],
+                       block["attn_norm_b"], cfg.gn_eps, mask)
     qkv = _linear(y, block["attn_qkv_w"], block["attn_qkv_b"],
                   compute_dtype, out_dtype=compute_dtype)  # (B, T, 3C)
     if use_packed(cfg):
@@ -135,12 +139,10 @@ def _attention(block, x, buckets, cfg: DiffusionConfig, mask=None,
 def _resblock(block, x, time_emb, cfg: DiffusionConfig, mask=None,
               compute_dtype=None, tp=None):
     """FiLM resblock over (B, T, C); time_emb (B, C)."""
-    fast = compute_dtype is not None
     groups = local_count(cfg.n_groups, tp, "groups")
-    y = group_norm_tc(x, cfg.n_groups, block["res_in_norm_w"],
-                      block["res_in_norm_b"], cfg.gn_eps, mask=mask,
-                      fast=fast)
-    y = _linear(silu(y), block["res_in_conv_w"], block["res_in_conv_b"],
+    y = group_norm_act(x, cfg.n_groups, block["res_in_norm_w"],
+                       block["res_in_norm_b"], cfg.gn_eps, mask, silu=True)
+    y = _linear(y, block["res_in_conv_w"], block["res_in_conv_b"],
                 compute_dtype, out_dtype=compute_dtype)
     emb = _linear(silu(time_emb), block["res_emb_w"], block["res_emb_b"],
                   compute_dtype)
@@ -148,15 +150,11 @@ def _resblock(block, x, time_emb, cfg: DiffusionConfig, mask=None,
     if tp is not None:  # this rank's channels of the FiLM
         lo, hi = tp.split(scale.shape[-1])
         scale, shift = scale[..., lo:hi], shift[..., lo:hi]
-    y = group_norm_tc(y, groups, block["res_out_norm_w"],
-                      block["res_out_norm_b"], cfg.gn_eps, mask=mask,
-                      fast=fast)
-    y = silu(y * (1.0 + scale)[:, None, :] + shift[:, None, :])
-    if mask is not None:
-        # the FiLM shift is nonzero on padded frames; zero them before the
-        # k3 conv or they leak into the last valid frame
-        y = torch.where(mask[:, :, None], y, torch.zeros((), dtype=y.dtype,
-                                                         device=y.device))
+    # FiLM, SiLU, and padded frames zeroed after it: the FiLM shift is
+    # nonzero there and would leak into the last valid frame of the k3 conv
+    y = group_norm_act(y, groups, block["res_out_norm_w"],
+                       block["res_out_norm_b"], cfg.gn_eps, mask,
+                       film=(scale, shift), silu=True)
     if tp is None:
         y = conv1d_nwc(y, block["res_out_conv_w"], block["res_out_conv_b"],
                        padding=1, compute_dtype=compute_dtype,
@@ -188,10 +186,10 @@ def latent_conditioner(params, cfg: DiffusionConfig, latents, lat_buckets,
     for l in range(cfg.n_latent_cond_blocks):
         x = _attention(_layer(params["latent_blocks"], l), x, lat_buckets,
                        cfg, lat_mask, compute_dtype, tp)
-    x = group_norm_tc(x, cfg.n_groups, params["code_norm_w"],
-                      params["code_norm_b"], cfg.gn_eps, mask=lat_mask,
-                      fast=compute_dtype is not None)
-    return x * (1.0 + params["cond_scale"]) + params["cond_shift"]
+    film = tuple(params[k].to(x.dtype) for k in ("cond_scale", "cond_shift"))
+    return group_norm_act(x, cfg.n_groups, params["code_norm_w"],
+                          params["code_norm_b"], cfg.gn_eps, lat_mask,
+                          film=film)
 
 
 def time_mlp(params, t_emb, compute_dtype=None):
@@ -232,10 +230,9 @@ def trunk(params, cfg: DiffusionConfig, noisy_mel, code_emb, time_emb,
     for l in range(cfg.n_tail_resblocks):
         x = _resblock(_layer(params["tail"], l), x, time_emb, cfg, mask,
                       compute_dtype, tp)
-    x = group_norm_tc(x, cfg.n_groups, params["out_norm_w"],
-                      params["out_norm_b"], cfg.gn_eps, mask=mask,
-                      fast=compute_dtype is not None)
-    x = conv1d_nwc(silu(x), params["out_w"], params["out_b"], padding=1,
+    x = group_norm_act(x, cfg.n_groups, params["out_norm_w"],
+                       params["out_norm_b"], cfg.gn_eps, mask, silu=True)
+    x = conv1d_nwc(x, params["out_w"], params["out_b"], padding=1,
                    compute_dtype=compute_dtype)
     if mask is not None:
         x = torch.where(mask[:, :, None], x, 0.0)
@@ -286,10 +283,13 @@ def denoise(params, cfg: DiffusionConfig, x, code_emb, t_orig, out_buckets,
     time_emb = time_mlp(params, t_emb, compute_dtype)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-        code_emb = code_emb.to(compute_dtype)
         time_emb = time_emb.to(compute_dtype)
-    code = integrate_code(params, cfg, code_emb.transpose(1, 2), time_emb,
-                          out_buckets, mask, compute_dtype, tp)
+    # time-major and contiguous, as the group norms take it: one copy
+    code_emb = code_emb.transpose(1, 2).to(
+        compute_dtype or code_emb.dtype, copy=True,
+        memory_format=torch.contiguous_format)
+    code = integrate_code(params, cfg, code_emb, time_emb, out_buckets, mask,
+                          compute_dtype, tp)
     out = trunk(params, cfg, x.transpose(1, 2), code, time_emb, out_buckets,
                 mask, compute_dtype, tp)
     return out.transpose(1, 2).float()

@@ -7,6 +7,7 @@ def _wrappers():
     from tortoise_tpu_torch.ops.cuda import flash_attention as fa
     from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as fi
     from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
+    from tortoise_tpu_torch.ops.cuda.group_norm import group_norm_act
     from tortoise_tpu_torch.ops.cuda.lvc import lvc_gated_residual
 
     return {"decode_trunk": fused_decode_trunk,
@@ -16,6 +17,7 @@ def _wrappers():
             "flash_attention_generic": fa._generic_flash,
             "flash_attention_f32": fa._launch_d,
             "lvc_gated_residual": lvc_gated_residual,
+            "group_norm_act": group_norm_act,
             "flash_packed_i8": fi.flash_packed_i8,
             "int8_quantize_kv": fi.quantize_kv}
 
