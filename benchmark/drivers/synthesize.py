@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from benchmark import check, harness, trace
+from benchmark import harness, trace
+from benchmark.families.tortoise import Served, served_tokens
 
 
 def _call(run, req, ar_only=False):
@@ -85,12 +86,12 @@ def window(run, state, seconds):
     run.closed = harness.now()
 
 
-def served(run, rec) -> check.Served:
+def served(run, rec) -> Served:
     req, res = rec.request, rec.result
-    return check.Served(
+    return Served(
         text=req.tokens, voice=run.plan.voices[req.voice],
         greedy=req.greedy,
-        tokens=check.served_tokens(res.sequences[0], run.config["ar"]),
+        tokens=served_tokens(res.sequences[0], run.config["ar"]),
         audio=res.audio,
         latents=np.asarray(res.latents[0]), mel=np.asarray(res.mel),
         seed=req.seed)

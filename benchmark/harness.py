@@ -1,11 +1,34 @@
 """The generic part of a run, driven by ``BENCHMARK.json`` and the files
-it names; nothing here knows a cell, a configuration or a metric.
+it names; nothing here knows a cell, a configuration, a model family or
+a metric.
 
 A cell (``workloads[i]``) names its configuration (``configs[j].file``)
-and its traffic mix, ``benchmark/traffic/<cell>.json``, which names its
-entry driver, ``benchmark/drivers/<entry>.py``. Each metric is read by
-``benchmark/metrics/<metric>.py``. A later cell, mix, entry or metric is
-added as files and entries alone.
+and its traffic mix, ``benchmark/traffic/<traffic>.json``, which names
+its entry driver, ``benchmark/drivers/<entry>.py``. The configuration
+names its model family, ``benchmark/families/<family>.py``. Each metric
+is read by ``benchmark/metrics/<metric>.py``. A later cell, mix, entry,
+family or metric is added as files and entries alone.
+
+A family module has six functions:
+
+- ``build(run)``: the plan (``traffic.make_plan`` at the family's voice
+  width), the weights drawn from ``run.seed`` and the program's models:
+  it sets ``run.plan``, ``run.models`` and whatever else of ``Run`` its
+  drivers read;
+- ``free(run)``: drop the program's state before the reference runs;
+- ``reference(config, seed, device, control=False)``: the plain
+  reference, which draws its weights again from the seed; with
+  ``control`` one precision step below the configuration's;
+- ``numbers(ref, served, names)``: the check's numbers ``names`` of one
+  served request (``check.worst`` takes the worst over the sample);
+- ``control_numbers(ref, ctrl, served, names)``: the same numbers of the
+  control ``ctrl`` in the program's place on the same request;
+- ``request_row(record)``: the family's fields of a request's row in the
+  result line (after its index, text length and greedy).
+
+A family's served object has ``text`` and ``greedy`` (``check.sample``
+reads them); an entry's result has ``audio`` (the samples) and
+``sample_rate`` (``rtf`` reads them).
 
 A driver module has four functions:
 
@@ -14,11 +37,15 @@ A driver module has four functions:
 - ``window(run, state, seconds)``: serve the plan for ``seconds`` and
   fill ``run.records`` (each request's times and result), ``run.opened``
   and ``run.closed``;
-- ``served(run, record) -> check.Served``: what the check compares;
+- ``served(run, record)``: the family's served object, which the check
+  compares;
 - ``close(state)``: stop what ``setup`` started.
 
 A metric module has ``read(run) -> float | None``: None when the run
 holds nothing for it to read, and the metric is then left out.
+
+Modules are found under the benchmark's directory ``here``, ``HERE``
+unless a caller (a test running a copy) names another.
 """
 
 from __future__ import annotations
@@ -56,25 +83,33 @@ def config_of(spec: dict, cell_: dict, root: str = ROOT) -> dict:
     raise SystemExit(f"no configuration named {cell_['config']!r}")
 
 
-def mix_of(cell_: dict, here: str = HERE) -> dict:
-    with open(os.path.join(here, "traffic", cell_["name"] + ".json")) as f:
+def mix_of(cell_: dict, here: Optional[str] = None) -> dict:
+    with open(os.path.join(here or HERE, "traffic",
+                           cell_["traffic"] + ".json")) as f:
         return json.load(f)
 
 
-def _module(kind: str, name: str, here: str = HERE):
-    path = os.path.join(here, kind, name + ".py")
+def _module(kind: str, name: str, here: Optional[str] = None):
+    path = os.path.join(here or HERE, kind, name + ".py")
     spec = importlib.util.spec_from_file_location(
         f"benchmark_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
+    # registered before it runs, as an import would: a dataclass in it
+    # looks its module up there
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
 
-def driver(mix: dict, here: str = HERE):
+def driver(mix: dict, here: Optional[str] = None):
     return _module("drivers", mix["entry"], here)
 
 
-def metric(name: str, here: str = HERE):
+def family(config: dict, here: Optional[str] = None):
+    return _module("families", config["family"], here)
+
+
+def metric(name: str, here: Optional[str] = None):
     return _module("metrics", name, here)
 
 
@@ -110,7 +145,9 @@ class Record:
 
 @dataclasses.dataclass
 class Run:
-    """A run's state, handed to the driver and to every metric reader."""
+    """A run's state, handed to the driver and to every metric reader.
+    The family's ``build`` sets ``plan``, ``models`` and, for Tortoise's
+    drivers, ``compute_dtype`` and ``int8``."""
     cell: dict
     config: dict
     mix: dict
@@ -149,69 +186,8 @@ def request_done(run: Run) -> None:
         stop()
 
 
-def port_configs(config: dict, device):
-    """The port's config dataclasses for ``config`` on ``device``: the
-    published sizes, and ``use_flash`` by the CLI's rule."""
-    from tortoise_tpu_torch.cli import flash_on
-    from tortoise_tpu_torch.config import (
-        ARConfig,
-        DiffusionConfig,
-        VocoderConfig,
-    )
-
-    def fields(d):
-        return {k: tuple(v) if isinstance(v, list) else v
-                for k, v in d.items()}
-
-    plane = config["plane"]
-    return (ARConfig(**fields(config["ar"])),
-            DiffusionConfig(**fields(config["diffusion"]),
-                            use_flash=plane["use_flash"]
-                            and flash_on(device)),
-            VocoderConfig(**fields(config["vocoder"])))
-
-
-def build(run: Run) -> None:
-    """The plan, the weights on the device and the port's models."""
-    import torch
-
-    from benchmark import traffic, weights
-    from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels
-
-    plane = run.config["plane"]
-    if plane["tf32"] is not None and run.device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = plane["tf32"]
-        torch.backends.cudnn.allow_tf32 = plane["tf32"]
-    run.compute_dtype = (getattr(torch, plane["compute_dtype"])
-                         if plane["compute_dtype"] else None)
-    run.int8 = plane["int8_weights"]
-    run.plan = traffic.make_plan(run.mix, run.seed,
-                                 run.config["ar"]["d_model"])
-    w = weights.make(run.config, run.seed, run.device)
-    ar, diff, voc = port_configs(run.config, run.device)
-    run.models = TortoiseModels(ar_params=w["ar"],
-                                diffusion_params=w["diffusion"],
-                                vocoder_params=w["vocoder"], ar_cfg=ar,
-                                diffusion_cfg=diff, vocoder_cfg=voc)
-
-
 # the plan's requests that a window can reach, at most
 REACH = 64
-
-
-def free(run: Run) -> None:
-    """Drop the program's state: its models, casts and step graphs."""
-    import gc
-
-    import torch
-
-    from tortoise_tpu_torch.pipeline.common import clear_cast_cache
-
-    run.models = None
-    clear_cast_cache()
-    gc.collect()
-    if run.device.type == "cuda":
-        torch.cuda.empty_cache()
 
 
 def now() -> float:

@@ -3,8 +3,8 @@
 
 from __future__ import annotations
 
-from benchmark import check
 from benchmark.counts import attention, model
+from benchmark.families import tortoise
 from benchmark.reference import ar as R_ar
 
 
@@ -42,7 +42,7 @@ def mfu_pct(run):
         least += model.least_time_s(model.request_flops(
             run.config, len(r.request.tokens),
             int(r.result.timings["ar_decode_steps"]), keep,
-            check.mel_frames(keep)))
+            tortoise.mel_frames(keep)))
     return 100.0 * least / wall
 
 

@@ -58,12 +58,12 @@ def _card(device) -> str:
         return f"nvidia-smi failed: {e}"
 
 
-def _metrics(run, specs) -> dict:
+def _metrics(run, specs, here) -> dict:
     from benchmark import harness
 
     out = {}
     for m in specs:
-        v = harness.metric(m["name"]).read(run)
+        v = harness.metric(m["name"], here).read(run)
         if v is not None and math.isfinite(v):
             out[m["name"]] = {"value": v, "unit": m["unit"]}
     return out
@@ -72,21 +72,25 @@ def _metrics(run, specs) -> dict:
 def run_cell(spec: dict, cell: dict, seed: int, seconds: float,
              traced: bool, device, t0: float, config: dict = None,
              mix: dict = None, control: bool = False,
-             log=sys.stderr) -> dict:
+             log=sys.stderr, here: str = None) -> dict:
     """One run of ``cell``; returns the result line's dict, or raises.
     ``config`` and ``mix`` replace the cell's configuration and traffic
     files (the tests' tiny sizes). ``control`` also reads the control's
     numbers on the same requests (``benchmark/calibrate.py``; the
-    benchmark's own runs never do)."""
+    benchmark's own runs never do). ``here`` is the benchmark's
+    directory whose files the run reads (``harness.HERE`` unless a test
+    runs a copy)."""
     import torch
 
     from benchmark import check, harness, trace
 
+    here = here or harness.HERE
     run = harness.Run(cell=cell, config=config or harness.config_of(
-        spec, cell), mix=mix or harness.mix_of(cell), seed=seed,
-        device=device)
-    harness.build(run)
-    drv = harness.driver(run.mix)
+        spec, cell, os.path.dirname(here)),
+        mix=mix or harness.mix_of(cell, here), seed=seed, device=device)
+    fam = harness.family(run.config, here)
+    fam.build(run)
+    drv = harness.driver(run.mix, here)
     state = drv.setup(run)
     run.setup_s = harness.now() - t0
     if traced:
@@ -120,24 +124,23 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float,
     if traced:
         run.trace = trace.reduce(prof)
     key = "per_layer" if traced else "end_to_end"
-    metrics = _metrics(run, harness.metrics_of(spec, cell["name"], key))
+    metrics = _metrics(run, harness.metrics_of(spec, cell["name"], key),
+                       here)
 
     done = run.done
     served = [drv.served(run, r) for r in done]
     pick = check.sample(served, seed, run.mix["check"]["requests"])
-    harness.free(run)
+    fam.free(run)
     t_check = harness.now()
     limits = run.mix["check"]["limits"]
     names = run.mix["check"]["numbers"]
-    ref = check.Reference(run.config, seed, device,
-                          check.reference_precision(run.config))
-    nums = check.worst([check.numbers(ref, served[i], names) for i in pick])
+    ref = fam.reference(run.config, seed, device)
+    nums = check.worst([fam.numbers(ref, served[i], names) for i in pick])
     ctrl_nums = None
     if control:
-        ctrl = check.Reference(run.config, seed, device,
-                               check.control_precision(run.config))
-        ctrl_nums = check.worst([check.control_numbers(ref, ctrl, served[i],
-                                                       names) for i in pick])
+        ctrl = fam.reference(run.config, seed, device, control=True)
+        ctrl_nums = check.worst([fam.control_numbers(ref, ctrl, served[i],
+                                                     names) for i in pick])
         del ctrl
     correct = (bool(done) and len(done) == len(run.records)
                and check.verdict(nums, limits))
@@ -155,14 +158,11 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float,
         "check_s": harness.now() - t_check,
         "requests_checked": [done[i].request.index for i in pick],
     }
-    # each request: index, text ids, greedy, AR steps, latent frames,
-    # audio s, s from send (closed loop) or due time (open loop) to result
+    # each request: index, text length, greedy, the family's fields, s from
+    # send (closed loop) or due time (open loop) to result
     out["requests"] = [
         [r.request.index, len(r.request.tokens), r.request.greedy]
-        + ([int(r.result.timings.get("ar_decode_steps", 0)),
-            len(r.result.latents[0]) if r.result.latents[0] is not None
-            else None, len(r.result.audio) / r.result.sample_rate]
-           if r.ok else [None, None, None])
+        + fam.request_row(r)
         + [None if r.end is None else r.end - (r.due or r.start)]
         for r in run.records]
     if ctrl_nums is not None:

@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import check, harness, weights
+from benchmark import check, weights
+from benchmark.families import tortoise
 from benchmark.reference import ar as R_ar
 from benchmark.reference import diffusion as R_diff
 from benchmark.reference import vocoder as R_voc
@@ -18,7 +19,7 @@ def _port(config, seed):
 
     dev = torch.device("cpu")
     w = weights.make(config, seed, dev)
-    ar, diff, voc = harness.port_configs(config, dev)
+    ar, diff, voc = tortoise.port_configs(config, dev)
     return TortoiseModels(ar_params=w["ar"], diffusion_params=w["diffusion"],
                           vocoder_params=w["vocoder"], ar_cfg=ar,
                           diffusion_cfg=diff, vocoder_cfg=voc)
@@ -37,19 +38,19 @@ def test_reference_agrees_with_the_port(tiny_cell, cell, tol):
     res = synthesize(models, tokens=text, voice=voice, seed=5, device="cpu",
                      sampler_params={"top_k": 1}, int8_weights=int8,
                      compute_dtype=torch.bfloat16 if int8 else None)
-    s = check.Served(text=text, voice=voice, greedy=True,
-                     tokens=check.served_tokens(res.sequences[0],
-                                                config["ar"]),
-                     audio=res.audio, latents=res.latents[0], mel=res.mel,
-                     seed=5)
-    ref = check.Reference(config, 11, torch.device("cpu"),
-                          check.reference_precision(config))
+    s = tortoise.Served(text=text, voice=voice, greedy=True,
+                        tokens=tortoise.served_tokens(res.sequences[0],
+                                                      config["ar"]),
+                        audio=res.audio, latents=res.latents[0],
+                        mel=res.mel, seed=5)
+    ref = tortoise.Reference(config, 11, torch.device("cpu"),
+                             tortoise.reference_precision(config))
     pen = ref.logits(s)
     # teacher-forced on the port's own greedy tokens, the reference puts
     # the same token first
     assert pen.argmax(-1).tolist() == s.tokens
-    nums = check.numbers(ref, s, ("ar_gap", "latent_err", "mel_err",
-                                  "audio_err"))
+    nums = tortoise.numbers(ref, s, ("ar_gap", "latent_err", "mel_err",
+                                     "audio_err"))
     assert nums["ar_gap"] == 0.0
     for k in ("latent_err", "mel_err", "audio_err"):
         assert nums[k] < tol, (k, nums[k])
@@ -70,7 +71,7 @@ def test_vocoder_operands_rounded_where_the_port_rounds(tiny_cell, kind):
                                   generator=torch.Generator().manual_seed(2))
                       * 0.5, -1, 1)
     port = torch.as_tensor(vocoder_stage.vocoder_batch_device(
-        w, mel[None], [24], harness.port_configs(config, dev)[2], seed=9,
+        w, mel[None], [24], tortoise.port_configs(config, dev)[2], seed=9,
         compute_dtype=torch.bfloat16, device="cpu")[0])
     total = 24 + c["mel_pad_frames"]
     noise = torch.randn((1, c["noise_ch"], (total + 31) // 32 * 32),
@@ -98,11 +99,12 @@ def test_quantizers_match_the_stated_rounding():
 
 def test_the_control_departs_from_the_reference(tiny_cell):
     _, _, config, _ = tiny_cell("int8-single")
-    ref = check.Reference(config, 3, torch.device("cpu"),
-                          check.reference_precision(config))
-    ctrl = check.Reference(config, 3, torch.device("cpu"),
-                           check.control_precision(config))
-    assert check.control_precision(config) == Precision(4, 8, vocoder="fp8")
+    ref = tortoise.Reference(config, 3, torch.device("cpu"),
+                             tortoise.reference_precision(config))
+    ctrl = tortoise.Reference(config, 3, torch.device("cpu"),
+                              tortoise.control_precision(config))
+    assert tortoise.control_precision(config) == Precision(4, 8,
+                                                           vocoder="fp8")
     lat = torch.randn(12, config["ar"]["d_model"])
     gen = torch.Generator().manual_seed(1)
 
@@ -116,7 +118,7 @@ def test_the_control_departs_from_the_reference(tiny_cell):
     assert check._rel(b, a) > 1e-2
     from tortoise_tpu_torch.pipeline import ar_stage
 
-    port_ar = harness.port_configs(config, torch.device("cpu"))[0]
+    port_ar = tortoise.port_configs(config, torch.device("cpu"))[0]
     for seq in ([1, 2, 3], [7] * 13, [4, 5, 5, 5, 37]):
         padded = R_ar.pad_sequence(seq, config["ar"])
         assert padded == ar_stage.apply_padding(seq, port_ar)

@@ -1,7 +1,8 @@
 """BENCHMARK.json against the contract's shape, every cell resolving its
-files by name, and a cell and a metric added as new files and entries
-alone."""
+files by name, a cell and a metric added as new files and entries
+alone, and the shared modules knowing no model family."""
 
+import ast
 import json
 import os
 import re
@@ -68,7 +69,9 @@ def test_every_cell_resolves_its_files():
         drv = harness.driver(mix)
         for fn in ("setup", "window", "served", "close"):
             assert callable(getattr(drv, fn))
-        assert set(mix["check"]["limits"]) >= {"ar_gap"}
+        assert set(mix["check"]["limits"]) == set(mix["check"]["numbers"])
+        if config["family"] == "tortoise":
+            assert set(mix["check"]["limits"]) >= {"ar_gap"}
         for key in ("end_to_end", "per_layer"):
             for m in harness.metrics_of(spec, w["name"], key):
                 assert callable(harness.metric(m["name"]).read)
@@ -108,8 +111,6 @@ def test_a_cell_and_a_metric_added_as_files(tmp_path):
                               "source": "host_clock", "layer": "device",
                               "moves": "rtf",
                               "workloads": ["bf16-single"]})
-    next(m for m in spec["end_to_end"]
-         if m["name"] == "rtf")["workloads"].append("bf16-single")
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
 
     spec = harness.load_spec(str(root))
@@ -122,6 +123,8 @@ def test_a_cell_and_a_metric_added_as_files(tmp_path):
     names = [m["name"] for m in
              harness.metrics_of(spec, "bf16-single", "per_layer")]
     assert names == ["requests_done.single"]
+    assert [m["name"] for m in harness.metrics_of(
+        spec, "bf16-single", "end_to_end")] == ["rtf", "setup_s"]
 
     class Run:
         done = [1, 2]
@@ -129,6 +132,42 @@ def test_a_cell_and_a_metric_added_as_files(tmp_path):
     for p, data in before.items():
         if p.name != "BENCHMARK.json":
             assert p.read_bytes() == data, f"{p} was edited"
+
+
+# what every family module defines (``harness``'s docstring)
+FAMILY = ("build", "free", "reference", "numbers", "control_numbers",
+          "request_row")
+# the modules every family shares
+SHARED = ("harness.py", "run.py", "calibrate.py", "check.py")
+
+
+def test_every_configuration_names_its_family():
+    spec = harness.load_spec()
+    for w in spec["workloads"]:
+        config = harness.config_of(spec, w)
+        assert NAME.match(config["family"])
+        fam = harness.family(config)
+        assert fam.__file__ == os.path.join(harness.HERE, "families",
+                                            config["family"] + ".py")
+        for fn in FAMILY:
+            assert callable(getattr(fam, fn)), (config["family"], fn)
+
+
+@pytest.mark.parametrize("name", SHARED)
+def test_shared_modules_import_nothing_of_the_port(name):
+    """The harness reaches a model only through its family module: the
+    shared modules' source imports nothing of ``tortoise_tpu_torch``,
+    at the top or inside a function."""
+    with open(os.path.join(harness.HERE, name)) as f:
+        tree = ast.parse(f.read())
+    tops = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            tops.add(node.module.split(".")[0])
+    assert tops  # the parse saw its imports
+    assert "tortoise_tpu_torch" not in tops
 
 
 @pytest.mark.parametrize("name", ["jax", "jaxlib", "flax", "tortoise_tpu"])

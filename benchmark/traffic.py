@@ -1,6 +1,7 @@
 """The one traffic generator: a cell's mix file -> its seeded request plan.
 
-A mix file (``benchmark/traffic/<cell>.json``) holds only parameters:
+A mix file (``benchmark/traffic/<traffic>.json``, the cell's ``traffic``)
+holds only parameters:
 
 - ``entry``: the driver that serves the plan (``benchmark/drivers/``);
 - ``text``: ``min_len`` and ``max_len`` of the wrapped text (``[start] +
@@ -8,7 +9,8 @@ A mix file (``benchmark/traffic/<cell>.json``) holds only parameters:
   the lengths are the ``sizes`` evenly spaced quantiles of the uniform
   draw between the two, each block of ``sizes`` requests holding every
   one of them once, in an order drawn from the seed;
-- ``voices``: ``count`` N(0, ``std``) latents, one drawn per request;
+- ``voices``: ``count`` N(0, ``std``) latents of the family's voice
+  width, one drawn per request;
 - ``greedy_every``: every n-th request (from the second; all of them at
   1) asks for the
   greedy sampler (``top_k`` 1); the rest keep the sampler's defaults;
@@ -51,7 +53,7 @@ class Request:
 @dataclasses.dataclass
 class Plan:
     requests: List[Request]
-    voices: np.ndarray       # (count, d_model) float32
+    voices: np.ndarray       # (count, width) float32
     mix: dict
 
 
@@ -86,12 +88,13 @@ def gaps(mix: dict) -> list:
     return [-math.log(1.0 - (i + 0.5) / k) / a["rate"] for i in range(k)]
 
 
-def make_plan(mix: dict, seed: int, d_model: int) -> Plan:
-    """The cell's requests from ``seed`` (module docstring)."""
+def make_plan(mix: dict, seed: int, width: int) -> Plan:
+    """The cell's requests from ``seed``, with voices ``width`` wide
+    (module docstring)."""
     rng = np.random.default_rng(int(seed))
     t, v = mix["text"], mix["voices"]
     n = mix["plan"]
-    voices = rng.normal(0.0, v["std"], (v["count"], d_model)).astype(
+    voices = rng.normal(0.0, v["std"], (v["count"], width)).astype(
         np.float32)
     sizes = _blocks(rng, lengths(mix), n)
     due = None
