@@ -40,13 +40,14 @@ def option_defaults(parser):
 
 def test_parser_takes_every_jax_option():
     """Every option string of the JAX CLI, with its default, plus
-    --device (cuda by default)."""
+    --device (cuda by default) and --family (tortoise by default)."""
     want = option_defaults(JCLI.build_parser())
     got = option_defaults(TCLI.build_parser())
     assert set(want) <= set(got), set(want) - set(got)
     assert {k: got[k] for k in want} == want
-    assert set(got) - set(want) == {"--device"}
+    assert set(got) - set(want) == {"--device", "--family"}
     assert got["--device"] == "cuda"
+    assert got["--family"] == "tortoise"
 
 
 class Reached(Exception):

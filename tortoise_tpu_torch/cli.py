@@ -17,6 +17,13 @@ threshold (the latent pass does at --batch-size 8). Without ``--bf16``
 the run is the f32 parity plane: kernel B runs there on an f32 qkv, on
 the split-TF32 tensor-core body, and the AR stage runs plain PyTorch.
 
+``--family f5 --random-weights`` runs F5-TTS v1 Base and its Vocos
+(``pipeline.f5_stage``) on seeded weights through the same
+``synthesize()``: ``--tokens`` are the char ids to speak (seeded
+stand-in ids without them), the reference clip a seeded 3 s log-mel
+(0.1 s with ``--tiny``) with a seeded transcript (F5-TTS has no voice
+file or tokenizer here); ``--bf16`` runs its DiT in bf16.
+
 With ``TORTOISE_TRACE_DIR`` set, the synthesis (not the model load) runs
 under ``torch.profiler``, and a Chrome trace of it goes to that
 directory: the program's ``tt.`` spans beside the kernels
@@ -113,6 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; fails without a card, "
                         "pass --device cpu for the CPU)")
+    p.add_argument("--family", choices=("tortoise", "f5"),
+                   default="tortoise",
+                   help="model family: Tortoise-TTS v2, or F5-TTS v1 Base "
+                        "(with --random-weights)")
     return p
 
 
@@ -169,6 +180,9 @@ def run(argv=None):
     from tortoise_tpu_torch.utils.profiling import trace
 
     device = resolve_device(args.device)
+    if args.family == "f5":
+        with trace():
+            return _run_f5(args, device)
     if args.random_weights:
         models = TortoiseModels.random(args.seed, tiny=args.tiny)
         tok_path = os.path.join(args.models, "tokenizer.json")
@@ -215,6 +229,43 @@ def run(argv=None):
               tokenizer_method=args.tokenizer_method, device=device)
     with trace():
         return _run_synthesis(args, models, kw)
+
+
+def _run_f5(args, device):
+    """--family f5: one utterance of F5-TTS on seeded weights."""
+    import numpy as np
+    import torch
+
+    from tortoise_tpu_torch.pipeline.f5_stage import F5Models, F5Voice
+    from tortoise_tpu_torch.pipeline.synthesize import synthesize
+
+    if not args.random_weights:
+        raise SystemExit("--family f5 runs on --random-weights only (the "
+                         "published checkpoints are not loaded here)")
+    models = F5Models.random(args.seed, tiny=args.tiny, device=device)
+    vc = models.vocos_cfg
+    rng = np.random.default_rng(args.seed)
+    ref_s = 0.1 if args.tiny else 3.0  # the tiny Vocos's hop is 16
+    voice = F5Voice(
+        mel=rng.normal(-4.0, 2.0, (int(ref_s * vc.sample_rate) // vc.hop,
+                                   vc.n_mel)).astype(np.float32),
+        text=rng.integers(1, models.cfg.text_vocab,
+                          max(1, round(15 * ref_s))).tolist())
+    if args.tokens is not None:
+        tokens = [int(t) for t in args.tokens.split(",") if t.strip()]
+    else:
+        tokens = rng.integers(1, models.cfg.text_vocab, 80).tolist()
+    result = synthesize(models, tokens=tokens, voice=voice, seed=args.seed,
+                        compute_dtype=torch.bfloat16 if args.bf16 else None,
+                        progress=_progress(args), device=device)
+    result.save(args.output)
+    total = result.timings["f5_s"] + result.timings["vocos_s"]
+    dur = len(result.audio) / result.sample_rate
+    print(f"wrote {args.output}: {len(result.audio)} samples ({dur:.2f}s @ "
+          f"{result.sample_rate} Hz); f5={result.timings['f5_s']:.2f}s, "
+          f"vocos={result.timings['vocos_s']:.2f}s; total {total:.2f}s "
+          f"(RTF {total / max(dur, 1e-9):.3f})")
+    return result
 
 
 def _run_synthesis(args, models, kw):

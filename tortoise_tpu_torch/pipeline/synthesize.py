@@ -164,6 +164,9 @@ class SynthesisResult:
     latents: List[Optional[np.ndarray]]
     tokens: List[int]
     timings: dict
+    # the F5 family's loop states and guided velocities at the steps a
+    # caller asked for (``f5_stage.synthesize``'s ``probe_steps``)
+    probes: Optional[dict] = None
 
     def save(self, path: str) -> None:
         write_wav(path, self.audio, self.sample_rate)
@@ -261,7 +264,8 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
                compute_dtype=None, tokenizer_method: str = "greedy",
                progress=None, int8_weights: bool = False,
                stage_sync: bool = True, materialize: bool = True,
-               sampler_params=None, device=None) -> SynthesisResult:
+               sampler_params=None, device=None,
+               probe_steps=()) -> SynthesisResult:
     """Run the full pipeline on ``device`` (default ``cuda``, which raises
     without a card; pass ``device="cpu"`` for the CPU). Provide
     ``message`` (tokenized with the models' tokenizer) or raw wrapped
@@ -270,7 +274,20 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
     candidate. ``stage_sync`` waits for the device at each stage boundary
     so the stage walls in ``timings`` are true. ``materialize=False``
     (serving) skips the mel and latent downloads of the device-resident
-    path: ``mel`` is then None and ``latents`` one None per candidate."""
+    path: ``mel`` is then None and ``latents`` one None per candidate.
+
+    An ``F5Models`` bundle (``pipeline.f5_stage``, imported only then)
+    runs F5-TTS: ``tokens`` are the char ids to speak, ``voice`` an
+    ``F5Voice``; ``probe_steps`` names loop steps whose state and guided
+    velocity come back in ``probes``. The AR-only arguments are unused
+    there."""
+    if getattr(models, "family", "tortoise") == "f5":
+        from tortoise_tpu_torch.pipeline import f5_stage
+
+        return f5_stage.synthesize(
+            models, tokens, voice, seed=seed, compute_dtype=compute_dtype,
+            progress=progress, stage_sync=stage_sync,
+            materialize=materialize, device=device, probe_steps=probe_steps)
     device = resolve_device(device)
     if tokens is None:
         if models.tokenizer is None:
