@@ -47,7 +47,11 @@ Phases (any failure exits nonzero before the result line):
    frames on both planes, as attn_norm and as res_out_norm (FiLM, SiLU),
    against its plain twin's f32 result (1e-5 of max |out| in f32, one
    bf16 rounding in bf16), two calls bit-equal, timed beside the twin,
-   the eager chain it replaced and its byte bound; then the A/B script
+   the eager chain it replaced and its byte bound; kernels Q8 and E8,
+   the int8 product's row quantize and epilogue around the bf16 GEMM, at
+   the denoiser's qkv, proj, integrating and res_out_conv shapes on bf16
+   and f32 inputs, bit-equal to the eager chain, timed beside it and
+   their byte bounds; then the A/B script
    scripts/torch_ubench_attn_int8_ab.py
    in a fresh process, whose launch counts of F and B must equal the
    calls it made (F's launches in the result line are that run's);
@@ -56,8 +60,9 @@ Phases (any failure exits nonzero before the result line):
    counts set to 0
    before it and read after it, each of which must launch kernel G
    (every request runs the denoiser): request 1 through the CLI at
-   --batch-size 1 must launch kernels A and B, request 2 at --batch-size
-   8 must also launch kernel C (the latent pass); every request runs its
+   --batch-size 1 must launch kernels A, B, Q8 and E8, request 2 at
+   --batch-size 8 must also launch kernel C (the latent pass); every
+   request runs its
    sampling and denoising loops as CUDA graphs of one step
    (pipeline/graphs.py), whose replays the launch counts include; then
    the graph phase: synthesize() at request 1's settings on its weights,
@@ -313,6 +318,12 @@ F_LONG = 28000
 G_SHAPE = (2, 2176, 1024, 32)
 G_PADDED = 40
 G_CHAINS = (("res_out_norm", "rows", True), ("attn_norm", None, False))
+# Q8 and E8: the int8 denoiser's products at G_SHAPE's rows, the same 40
+# padded frames: (name, K, N, padding) of qkv, proj (and res_in_conv),
+# the integrating product and res_out_conv; the second is timed into the
+# result line
+I8_CASES = (("qkv", 1024, 3072, 0), ("proj", 1024, 1024, 0),
+            ("integrating", 2048, 1024, 0), ("res_out_conv", 1024, 1024, 1))
 
 
 def bf16_qkv(torch, g, b, t, h, d):
@@ -1287,6 +1298,91 @@ def check_kernel_g(torch, results):
     results["G"]["max_abs_err"] = worst
 
 
+def check_int8_product(torch, results):
+    """Kernels Q8 and E8 at I8_CASES, bf16 and f32 inputs: Q8's codes and
+    scales, E8's output (bf16 with the bias, f32 without a cast) and the
+    whole route's product against the eager chain, bit for bit; then Q8,
+    E8 and the route timed beside the eager chains they replace and their
+    byte bounds (x read once and the codes written once; the f32 sums
+    read once and the output written once). The eager chains are the
+    plain models: ops.basic's quantize_rows, the pad of a conv's codes and
+    scales, the codes' cast to bf16; the scales, tap sums, cast and bias
+    as eager ops."""
+    from tortoise_tpu_torch.models import diffusion as TDM
+    from tortoise_tpu_torch.ops import conv
+    from tortoise_tpu_torch.ops.basic import mm_bf16, quantize_cols
+    from tortoise_tpu_torch.ops.cuda import int8_product as K
+
+    b, t = G_SHAPE[:2]
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def eager(x, pair, bias, padding):
+        route = K.takes_kernels
+        K.takes_kernels = lambda *a, **k: False
+        try:
+            if padding:
+                return conv.conv1d_nwc(x, pair, bias, padding=1,
+                                       compute_dtype=torch.bfloat16,
+                                       out_dtype=torch.bfloat16)
+            return TDM._linear(x, pair, bias, torch.bfloat16, torch.bfloat16)
+        finally:
+            K.takes_kernels = route
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, k_in, n, padding in I8_CASES:
+            x = torch.randn((b, t, k_in), generator=g, device="cuda") * 1.7
+            x[1, -G_PADDED:] = 0.0
+            x = x.to(dtype)
+            taps = 2 * padding + 1
+            pair = quantize_cols(0.05 * torch.randn(
+                (taps * k_in, n), generator=g, device="cuda"))
+            bias = torch.randn(n, generator=g, device="cuda")
+            x3 = x if padding else x.reshape(1, -1, k_in)
+            label = f"{name} ({dtype}, K {k_in}, N {n}, k{taps})"
+            codes, s_row = K.quantize_rows(x3, padding)
+            want = K.quantize_rows_plain(x3, padding)
+            if not (torch.equal(codes, want[0]) and torch.equal(s_row,
+                                                                want[1])):
+                fail(f"Q8 {label}: codes or scales differ from the eager "
+                     f"quantize")
+            sums = [mm_bf16(codes.reshape(-1, k_in), wj)
+                    for wj in pair[0].reshape(taps, k_in, n)]
+            for od, bb in ((torch.bfloat16, bias), (None, None)):
+                if not torch.equal(K.epilogue(sums, s_row, pair[1], bb, od),
+                                   K.epilogue_plain(sums, s_row, pair[1], bb,
+                                                    od)):
+                    fail(f"E8 {label} out {od}: differs from the eager "
+                         f"epilogue")
+            got = K.int8_product(x, pair, bias, torch.bfloat16, padding)
+            if not torch.equal(got, eager(x, pair, bias, padding)):
+                fail(f"int8 product {label}: differs from the eager chain")
+            q_ms = cuda_ms(torch, lambda: K.quantize_rows(x3, padding))
+            qe_ms = cuda_ms(torch, lambda: K.quantize_rows_plain(x3,
+                                                                 padding))
+            q_bound = bound(nbytes(x, codes, s_row))
+            e_ms = cuda_ms(torch, lambda: K.epilogue(
+                sums, s_row, pair[1], bias, torch.bfloat16))
+            ee_ms = cuda_ms(torch, lambda: K.epilogue_plain(
+                sums, s_row, pair[1], bias, torch.bfloat16))
+            e_bound = bound(nbytes(sums, got, s_row))
+            r_ms = cuda_ms(torch, lambda: K.int8_product(
+                x, pair, bias, torch.bfloat16, padding))
+            re_ms = cuda_ms(torch, lambda: eager(x, pair, bias, padding))
+            print(f"  Q8 {label}: kernel {q_ms:.4f} ms, the eager chain it "
+                  f"replaced {qe_ms:.4f} ms, bound {q_bound['bound_ms']:.4f}"
+                  f" ms; E8: kernel {e_ms:.4f} ms, eager chain {ee_ms:.4f} "
+                  f"ms, bound {e_bound['bound_ms']:.4f} ms; the product: "
+                  f"route {r_ms:.4f} ms, eager {re_ms:.4f} ms; bit-equal")
+            if dtype == torch.bfloat16 and name == I8_CASES[1][0]:
+                results["Q8"] = dict(ms=q_ms, plain_ms=qe_ms,
+                                     library_ms=None, max_abs_err=0.0,
+                                     **q_bound)
+                results["E8"] = dict(ms=e_ms, plain_ms=ee_ms,
+                                     library_ms=None, max_abs_err=0.0,
+                                     **e_bound)
+            del x, x3, pair, codes, s_row, want, sums, got
+
+
 def check_f32_packed_and_causal(torch, results):
     """Kernels B and C on an f32 qkv, as the Pallas kernels take it (the
     default CLI's plane, request 9): the split-TF32 body of
@@ -1973,7 +2069,8 @@ def run_ubench_phase(torch, models, smi, reset_launch_counts) -> None:
           for k in pre),
         (diff["flash"]["launches"].get(b, 0) > 0
          and diff["flash_no_mask"]["launches"].get(b, 0) > 0
-         and set(diff["plain"]["launches"]) == {"group_norm_act"},
+         and set(diff["plain"]["launches"]) == {
+             "group_norm_act", "int8_quantize_rows", "int8_epilogue"},
          "diffusion launches: " + ", ".join(
              f"{k} {diff[k]['launches']}"
              for k in ("flash", "plain", "flash_no_mask"))),
@@ -3261,6 +3358,7 @@ def main(argv=None) -> int:
     check_f32_body(torch)
     check_kernel_e(torch, results)
     check_kernel_g(torch, results)
+    check_int8_product(torch, results)
     check_f32_packed_and_causal(torch, results)
     check_kernel_f(torch, results)
     ab = run_int8_ab(smi)
@@ -3301,11 +3399,17 @@ def main(argv=None) -> int:
         # no Pallas kernel: XLA fuses group_norm_tc and the chain after it
         "G": ("group_norm_act", "group_norm_act",
               "tortoise_tpu_torch/csrc/group_norm.cu", None),
+        # no Pallas kernel: XLA fuses the int8 product's glue
+        "Q8": ("int8_product (row quantize)", "int8_quantize_rows",
+               "tortoise_tpu_torch/csrc/int8_product.cu", None),
+        "E8": ("int8_product (epilogue)", "int8_epilogue",
+               "tortoise_tpu_torch/csrc/int8_product.cu", None),
     }
     # each request is one path: counts set to 0 just before it, read just
     # after. Kernels every request of its path must launch, and kernels
     # it must not launch:
-    needs = {1: ("A", "B", "G"), 2: ("A", "B", "C", "G"),
+    needs = {1: ("A", "B", "G", "Q8", "E8"), 2: ("A", "B", "C", "G", "Q8",
+                                                 "E8"),
              3: ("A", "D1", "E", "G"), 4: ("A", "B", "C", "G"),
              5: ("A", "B", "E", "G"), 6: ("A", "B", "G"),
              7: ("A", "B", "C", "G"), 8: ("A", "B", "G"),

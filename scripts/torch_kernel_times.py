@@ -8,7 +8,9 @@ and input builders; f32 inputs: B and C, D2 causal and D1 at FMA_CASES,
 and every other D2_CASES mode, where the checkout's kernels take them; F
 and G only where the checkout has them, and on every checkout "G eager
 chain", the group norm chain as eager ops, which kernel G replaced in the
-denoiser); with --request3 N, also N runs of chip_smoke's request 3
+denoiser; "int8 product", the denoiser's int8 products at I8_CASES as
+the checkout runs them: eagerly before kernels Q8 and E8, on them
+after); with --request3 N, also N runs of chip_smoke's request 3
 (synthesize() on the diffusion fallback and the fused LVC: kernels A, D1
 and E). Two checkouts compare inside one call, in turns:
 
@@ -295,6 +297,26 @@ def main() -> int:
             emit("G eager chain", shape, lambda: smoke.gn_eager_chain(
                 torch, *gn_args, pair, silu))
             del gn_args, pair
+    from tortoise_tpu_torch.models import diffusion as TDM
+    from tortoise_tpu_torch.ops import conv
+    from tortoise_tpu_torch.ops.basic import quantize_cols
+
+    b, t = smoke.G_SHAPE[:2]
+    for name, k_in, n, padding in smoke.I8_CASES:
+        x = (torch.randn((b, t, k_in), generator=g, device="cuda") * 1.7).to(
+            torch.bfloat16)
+        pair = quantize_cols(0.05 * torch.randn(
+            ((2 * padding + 1) * k_in, n), generator=g, device="cuda"))
+        bias = torch.randn(n, generator=g, device="cuda")
+        if padding:
+            emit("int8 product", [b, t, k_in, n, name], lambda: (
+                conv.conv1d_nwc(x, pair, bias, padding=1,
+                                compute_dtype=torch.bfloat16,
+                                out_dtype=torch.bfloat16)))
+        else:
+            emit("int8 product", [b, t, k_in, n, name], lambda: TDM._linear(
+                x, pair, bias, torch.bfloat16, torch.bfloat16))
+        del x, pair, bias
     if args.request3:
         from tortoise_tpu_torch.pipeline.synthesize import TortoiseModels
 

@@ -1094,3 +1094,134 @@ def test_denoise_runs_kernel_g_at_every_group_norm_on_card(cuda_device):
     assert graph.launches["group_norm_act"] == 46
     assert (graph.warmups, graph.captures, graph.replays) == (1, 1, 2)
     graphs.clear()
+
+
+# kernels Q8 and E8 at the int8 cell's shapes: M = 2 x 2176 rows, the
+# last 40 frames of the second row zeroed; (K, N, padding): qkv, proj or
+# res_in_conv, the integrating product, res_out_conv
+I8_SHAPES = [(1024, 3072, 0), (1024, 1024, 0), (2048, 1024, 0),
+             (1024, 1024, 1)]
+
+
+def _i8_eager(monkeypatch, x, pair, bias, out_dtype, padding):
+    """The product by the eager chain on the card (the route turned off):
+    ``conv1d_nwc``'s int8 branch or ``_linear``."""
+    from tortoise_tpu_torch.models import diffusion as TDM
+    from tortoise_tpu_torch.ops import conv
+    from tortoise_tpu_torch.ops.cuda import int8_product as TQ
+
+    with monkeypatch.context() as m:
+        m.setattr(TQ, "takes_kernels", lambda *a, **k: False)
+        if padding:
+            return conv.conv1d_nwc(x, pair, bias, padding=1,
+                                   compute_dtype=out_dtype,
+                                   out_dtype=out_dtype)
+        return TDM._linear(x, pair, bias, out_dtype, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k_in,n,padding", I8_SHAPES)
+def test_int8_product_kernels_equal_the_eager_chain_on_card(
+        cuda_device, monkeypatch, dtype, k_in, n, padding):
+    """Q8's codes and scales equal the eager quantize, E8 its epilogue on
+    the same sums, and the route the eager product (bf16, f32 and f32
+    without a cast, with and without the bias), bit for bit; each route
+    call launches Q8 and E8 once."""
+    from tortoise_tpu_torch.ops.basic import mm_bf16, quantize_cols
+    from tortoise_tpu_torch.ops.cuda import int8_product as TQ
+
+    g = torch.Generator(device=cuda_device).manual_seed(k_in + n + padding)
+    x = torch.randn((2, 2176, k_in), generator=g, device=cuda_device) * 1.7
+    x[1, -40:] = 0.0
+    x = x.to(dtype)
+    taps = 2 * padding + 1
+    pair = quantize_cols(0.05 * torch.randn(
+        (taps * k_in, n), generator=g, device=cuda_device))
+    bias = torch.randn(n, generator=g, device=cuda_device)
+    x3 = x if padding else x.reshape(1, -1, k_in)
+    codes, s_row = TQ.quantize_rows(x3, padding)
+    want_codes, want_s = TQ.quantize_rows_plain(x3, padding)
+    assert torch.equal(codes, want_codes) and torch.equal(s_row, want_s)
+    flat = codes.reshape(-1, k_in)
+    sums = [mm_bf16(flat, wj) for wj in pair[0].reshape(taps, k_in, n)]
+    for out_dtype, b in ((torch.bfloat16, bias),
+                         (torch.bfloat16, bias.bfloat16()),
+                         (torch.float32, bias), (None, None)):
+        got = TQ.epilogue(sums, s_row, pair[1], b, out_dtype)
+        want = TQ.epilogue_plain(sums, s_row, pair[1], b, out_dtype)
+        assert got.dtype == want.dtype and torch.equal(got, want), out_dtype
+    for out_dtype in (torch.bfloat16, torch.float32, None):
+        q8, e8 = TQ.quantize_rows.launches, TQ.epilogue.launches
+        got = TQ.int8_product(x, pair, bias, out_dtype, padding)
+        assert (TQ.quantize_rows.launches, TQ.epilogue.launches) == (
+            q8 + 1, e8 + 1)
+        want = _i8_eager(monkeypatch, x, pair, bias, out_dtype, padding)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want), out_dtype
+
+
+@pytest.mark.cuda
+def test_int8_product_refuses_on_card_what_it_refuses_on_cpu(cuda_device):
+    from test_torch_int8_product import refusals
+
+    from tortoise_tpu_torch.ops.cuda import int8_product as TQ
+
+    for name, args in refusals(cuda_device).items():
+        with pytest.raises(ValueError, match="int8_product"):
+            TQ.int8_product(*args)
+            pytest.fail(name)
+
+
+@pytest.mark.cuda
+def test_int8_denoiser_eval_runs_q8_and_e8_at_every_product_on_card(
+        cuda_device, monkeypatch):
+    """At the published widths and depths, one int8 CFG eval at the cell's
+    T (2176, 40 padded frames) launches Q8 and E8 59 times each and gives
+    the eager route's bits (the parent's eval); the step graph of the
+    denoising loop holds the 59 launches and its replays add them."""
+    from tortoise_tpu_torch.config import DiffusionConfig
+    from tortoise_tpu_torch.io.checkpoint import random_diffusion_params
+    from tortoise_tpu_torch.models import diffusion as TDM
+    from tortoise_tpu_torch.ops.cuda import int8_product as TQ
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tortoise_tpu_torch.pipeline import common, graphs
+    from tortoise_tpu_torch.pipeline import diffusion_stage as DS
+
+    cfg = dataclasses.replace(DiffusionConfig(), use_flash=True,
+                              n_sample_timesteps=4)
+    params = DS._prepare_params(random_diffusion_params(cfg, 3, fast=True),
+                                True, cuda_device)
+    t = 2176
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((2, cfg.n_mel, t), generator=g, device=cuda_device)
+    code = torch.randn((2, cfg.d_model, t), generator=g, device=cuda_device)
+    mask = torch.arange(t, device=cuda_device)[None, :] < t - 40
+    reset_launch_counts()
+    got = TDM.denoise(params, cfg, x, code, 400, None, mask, torch.bfloat16)
+    counts = launch_counts()
+    assert (counts["int8_quantize_rows"], counts["int8_epilogue"]) == (59, 59)
+    with monkeypatch.context() as m:
+        m.setattr(TQ, "takes_kernels", lambda *a, **k: False)
+        want = TDM.denoise(params, cfg, x, code, 400, None, mask,
+                           torch.bfloat16)
+    assert launch_counts()["int8_quantize_rows"] == 59
+    assert torch.equal(got, want)
+    sched = DS.schedule_arrays(cfg, cuda_device)
+    graphs.clear()
+    for eager in (True, False):
+        reset_launch_counts()
+        gen = common.make_generator(3, cuda_device)
+        DS._denoise_loop(params, cfg, sched, code, x[:1], None, mask,
+                         lambda: DS.draw_normal(gen, (1,) + x.shape[1:],
+                                                cuda_device),
+                         torch.bfloat16, True, eager=eager)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert (counts["int8_quantize_rows"], counts["int8_epilogue"]) == (
+            59 * 4, 59 * 4), eager
+    (_, graph), = graphs.entries()
+    assert graph.launches["int8_quantize_rows"] == 59
+    assert graph.launches["int8_epilogue"] == 59
+    assert (graph.warmups, graph.captures, graph.replays) == (1, 1, 2)
+    graphs.clear()

@@ -40,6 +40,7 @@ import torch.distributed as dist
 from tortoise_tpu_torch.config import DiffusionConfig
 from tortoise_tpu_torch.ops.basic import pdot, pdot_int8act, silu
 from tortoise_tpu_torch.ops.conv import conv1d_nwc
+from tortoise_tpu_torch.ops.cuda import int8_product as i8
 from tortoise_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
     flash_attention_packed,
@@ -54,6 +55,8 @@ NEG_INF = -1e30
 def _linear(x, w, b, compute_dtype=None, out_dtype=None):
     if isinstance(w, tuple):
         # pre-transposed int8 pair: dynamic per-row activation quantization
+        if i8.takes_kernels(x):  # kernels Q8 and E8, the cast and bias too
+            return i8.int8_product(x, w, b, out_dtype)
         out = pdot_int8act(x, w)
         if out_dtype is not None:
             return out.to(out_dtype) + b.to(out_dtype)

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from tortoise_tpu_torch.ops.basic import _mm, mm_bf16, quantize_rows
+from tortoise_tpu_torch.ops.cuda import int8_product as i8
 
 
 def _rounded(x, w, compute_dtype):
@@ -37,7 +38,9 @@ def conv1d_nwc(x, w, b=None, stride: int = 1, padding: int = 0,
     int8 pair (wmat (K*C_in, C_out) int8, scale) — then the product runs
     with per-row activation quantization, one shifted matmul per tap
     (k = 2*padding + 1); ``row_max`` and ``reduce`` (given the stacked
-    taps' integer sums) as in ``ops.basic.pdot_int8act``."""
+    taps' integer sums) as in ``ops.basic.pdot_int8act``; on a card
+    without them kernels Q8 and E8 run it, the cast and the bias
+    (``ops.cuda.int8_product``), the same bits."""
     if compute_dtype is None:
         out_dtype = None
     if isinstance(w, tuple):
@@ -45,6 +48,8 @@ def conv1d_nwc(x, w, b=None, stride: int = 1, padding: int = 0,
         k = 2 * padding + 1
         if stride != 1 or dilation != 1 or groups != 1:
             raise ValueError("int8 conv supports stride=dilation=groups=1")
+        if i8.takes_kernels(x, row_max, reduce):
+            return i8.int8_product(x, w, b, out_dtype, padding)
         if k == 1:
             xq, s_row = quantize_rows(x, row_max)
             acc = mm_bf16(xq, wq)

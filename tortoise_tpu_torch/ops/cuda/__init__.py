@@ -6,6 +6,7 @@ library is compiled on the first CUDA call (see ``build``)."""
 def _wrappers():
     from tortoise_tpu_torch.ops.cuda import flash_attention as fa
     from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as fi
+    from tortoise_tpu_torch.ops.cuda import int8_product as ip
     from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
     from tortoise_tpu_torch.ops.cuda.group_norm import group_norm_act
     from tortoise_tpu_torch.ops.cuda.lvc import lvc_gated_residual
@@ -19,7 +20,9 @@ def _wrappers():
             "lvc_gated_residual": lvc_gated_residual,
             "group_norm_act": group_norm_act,
             "flash_packed_i8": fi.flash_packed_i8,
-            "int8_quantize_kv": fi.quantize_kv}
+            "int8_quantize_kv": fi.quantize_kv,
+            "int8_quantize_rows": ip.quantize_rows,
+            "int8_epilogue": ip.epilogue}
 
 
 def launch_counts() -> dict:
