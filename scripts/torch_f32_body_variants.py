@@ -3,7 +3,8 @@
 NVIDIA card: each variant is ``csrc/flash_attention_bhtd.cu`` with one
 design choice changed by a text substitution, built with nvcc into its
 own library under ``tortoise_tpu_torch/_build/variants/`` (all builds at
-once), then every variant runs chip_smoke.py's f32 shapes through the
+once), then every variant runs the kernel timer's f32 shapes
+(``scripts/torch_kernel_times.py``) through the
 port's wrappers, in two rounds (forward, then reversed):
 
     python3 scripts/torch_f32_body_variants.py
@@ -18,8 +19,8 @@ cores): plain TF32, to see what the split and its two extra products
 cost, and how far plain TF32 is from f32. Cases: B at (2, 2176) x 16 x 64, C at
 (8, 535) x 16 x 64, D2 causal (8, 16, 535, 64) and D1 (2, 32, 2176, 32)
 on views of a packed qkv, B at 8 heads of 128 and 64 heads of 16, and
-D2 over 8192 keys (chip_smoke's F32_LONG). Each line of output is one
-JSON object: the variant, the case, device ms a call (chip_smoke's
+D2 over 8192 keys (the timer's F32_LONG). Each line of output is one
+JSON object: the variant, the case, device ms a call (the timer's
 cuda_ms) in each round, the error against the plain version relative to
 its max |out|, the card's name and power limit; one line a variant has
 its ptxas register and spill report.
@@ -114,8 +115,8 @@ def build_variants(build) -> dict:
     return libs
 
 
-def cases(torch, smoke, FA):
-    """[(label, call, plain output)] at chip_smoke's f32 shapes."""
+def cases(torch, times, FA):
+    """[(label, call, plain output)] at the kernel timer's f32 shapes."""
     g = torch.Generator(device="cuda").manual_seed(12)
     dev = torch.device("cuda")
     out = []
@@ -131,16 +132,16 @@ def cases(torch, smoke, FA):
                     lambda qkv=qkv, h=h, vec=vec: FA.flash_attention_packed(
                         qkv, h, bias_vec=vec),
                     FA.flash_attention_packed_plain(qkv, h, None, vec)))
-    b, h, s = smoke.C_SHAPE
+    b, h, s = times.C_SHAPE
     qkv = torch.randn((b, s, 3 * h * 64), generator=g, device=dev)
     valid = torch.ones((b, s), dtype=torch.bool, device=dev)
     valid[:, 31:33] = False
     out.append((f"C ({b}, {s}) x {h} heads of 64",
                 lambda: FA.flash_attention_causal_qkv(qkv, h, valid),
                 FA.flash_attention_causal_qkv_plain(qkv, h, valid)))
-    for route, b, h, t, d in smoke.FMA_CASES:
+    for route, b, h, t, d in times.FMA_CASES:
         x = torch.randn((b, t, 3 * h * d), generator=g, device=dev)
-        q, k, v = smoke.views(x, h, d)
+        q, k, v = times.views(x, h, d)
         if route == "D2":
             vd = torch.ones((b, t), dtype=torch.bool, device=dev)
             vd[:, 31:33] = False
@@ -151,8 +152,8 @@ def cases(torch, smoke, FA):
                     lambda q=q, k=k, v=v, kw=kw: FA.flash_attention(
                         q, k, v, **kw),
                     FA.flash_attention_plain(q, k, v, **kw)))
-    b, h, tq, tkv = smoke.F32_LONG
-    q, k, v, kw = smoke.d2_inputs(torch, g, "unequal", b, h, tq, tkv,
+    b, h, tq, tkv = times.F32_LONG
+    q, k, v, kw = times.d2_inputs(torch, g, "unequal", b, h, tq, tkv,
                                   dtype=torch.float32)
     out.append((f"D2 ({b}, {h}, {tq}, {tkv}, 64), formula bias",
                 lambda: FA.flash_attention(q, k, v, **kw),
@@ -168,19 +169,20 @@ def main() -> int:
         print("torch_f32_body_variants: needs a CUDA card", file=sys.stderr)
         return 1
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+        "torch_kernel_times", os.path.join(HERE, "scripts",
+                                           "torch_kernel_times.py"))
+    times = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(times)
     from tortoise_tpu_torch.ops.cuda import build
     from tortoise_tpu_torch.ops.cuda import flash_attention as FA
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = smoke.smi_line()
+    card = times.smi_line()
     libs = build_variants(build)
     for name, (_, report) in libs.items():
         print(json.dumps(dict(variant=name, ptxas=report, card=card)),
               flush=True)
-    work = cases(torch, smoke, FA)
+    work = cases(torch, times, FA)
     torch.cuda.synchronize()
     got = {}
     for order in (list(libs), list(libs)[::-1]):
@@ -189,8 +191,8 @@ def main() -> int:
             for label, call, want in work:
                 out = call()
                 torch.cuda.synchronize()
-                rel = smoke.rel_err(torch, out, want)[1]
-                ms = smoke.cuda_ms(torch, call)
+                rel = times.rel_err(torch, out, want)[1]
+                ms = times.cuda_ms(torch, call)
                 got.setdefault((name, label), []).append((ms, rel))
     build._lib = None
     for name in libs:

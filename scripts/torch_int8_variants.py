@@ -20,7 +20,7 @@ accuracy costs; it may flip weights, and the error column says whether
 it did); "no pass 1" (the row max taken as 30: a timing probe of the
 second walk, its output wrong). Each line of output is one JSON object:
 the variant, the case, the device ms of the quantize pass and of the
-attention kernel alone in each round (chip_smoke's cuda_ms), the
+attention kernel alone in each round (the kernel timer's cuda_ms), the
 output's max abs difference from the plain version, the card's name and
 power limit; one line a variant has its ptxas register and spill report.
 """
@@ -112,20 +112,21 @@ def main() -> int:
         print("torch_int8_variants: needs a CUDA card", file=sys.stderr)
         return 1
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+        "torch_kernel_times", os.path.join(HERE, "scripts",
+                                           "torch_kernel_times.py"))
+    times = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(times)
     from tortoise_tpu_torch.ops.cuda import build
     from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as K
 
-    card = smoke.smi_line()
+    card = times.smi_line()
     libs = build_variants(build)
     for name, (_, report) in libs.items():
         print(json.dumps(dict(variant=name, ptxas=report, card=card)),
               flush=True)
     rng = np.random.default_rng(10)
     work = []
-    for b, t, h, d in (smoke.F_SHAPE, (2, 2048, 16, 64), (2, 2176, 8, 128)):
+    for b, t, h, d in (times.F_SHAPE, (2, 2048, 16, 64), (2, 2176, 8, 128)):
         qkv = torch.as_tensor(rng.normal(0, 1, (b, t, 3 * h * d)).astype(
             np.float32)).cuda().bfloat16()
         table = torch.as_tensor(rng.normal(0, 0.1, (32, h)).astype(
@@ -145,8 +146,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err = float((out.float() - want.float()).abs().max())
                 kv = K.quantize_kv(qkv, h)
-                quant_ms = smoke.cuda_ms(torch, lambda: K.quantize_kv(qkv, h))
-                attn_ms = smoke.cuda_ms(torch, lambda: K.attend_i8(
+                quant_ms = times.cuda_ms(torch, lambda: K.quantize_kv(qkv, h))
+                attn_ms = times.cuda_ms(torch, lambda: K.attend_i8(
                     qkv, h, kv, mask, bias))
                 got.setdefault((name, label), []).append(
                     (quant_ms, attn_ms, err))

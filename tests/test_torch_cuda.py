@@ -17,6 +17,8 @@ order) on bf16 maps.
 """
 
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -32,6 +34,19 @@ from tortoise_tpu_torch.ops.cuda import group_norm as TG
 from tortoise_tpu_torch.ops.cuda import lvc as TL
 from tortoise_tpu_torch.params import tree_to_torch
 from tortoise_tpu_torch.pipeline.ar_stage import quantize_ar
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def kernel_times():
+    """scripts/torch_kernel_times.py, whose production-width inputs (kernel
+    A's weights and caches) these tests share."""
+    path = os.path.join(ROOT, "scripts", "torch_kernel_times.py")
+    spec = importlib.util.spec_from_file_location("torch_kernel_times", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def assert_close(got, want, rel):
@@ -69,9 +84,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,n_valid", [(128, None), (300, 211)])
-def test_packed_kernel_matches_plain_on_card(cuda_device, t, n_valid):
-    h = 4
+@pytest.mark.parametrize("t,n_valid,h", [(128, None, 4), (300, 211, 4),
+                                         (2176, None, 16), (2176, 1813, 16)])
+def test_packed_kernel_matches_plain_on_card(cuda_device, t, n_valid, h):
+    """Kernel B on two rows, the second ragged where ``n_valid`` says; at
+    the denoiser's (2, 2176) x 16 x 64 too."""
     qkv = torch.tensor(_qkv(2, t, h, 64, 3)).bfloat16().to(cuda_device)
     table = torch.randn(32, h, device=cuda_device) * 0.3
     valid = None
@@ -109,10 +126,12 @@ def test_packed_kernel_at_serving_shapes_on_card(cuda_device, t, lens):
 
 
 @pytest.mark.cuda
-def test_causal_kernel_matches_plain_on_card(cuda_device):
-    h, s = 4, 200
-    qkv = torch.tensor(_qkv(3, s, h, 64, 4)).bfloat16().to(cuda_device)
-    valid = torch.ones((3, s), dtype=torch.bool, device=cuda_device)
+@pytest.mark.parametrize("b,s,h", [(3, 200, 4), (8, 535, 16)])
+def test_causal_kernel_matches_plain_on_card(cuda_device, b, s, h):
+    """Kernel C with padded text slots; at the AR latent pass's (8, 535)
+    x 16 x 64 (batch 8) too."""
+    qkv = torch.tensor(_qkv(b, s, h, 64, 4)).bfloat16().to(cuda_device)
+    valid = torch.ones((b, s), dtype=torch.bool, device=cuda_device)
     valid[:, 10:14] = False
     got = TF.flash_attention_causal_qkv(qkv, h, valid)
     want = TF.flash_attention_causal_qkv_plain(qkv, h, valid)
@@ -169,6 +188,128 @@ def test_decode_kernel_rows_split_as_their_batch_on_card(cuda_device):
         bias[:4], x[:4], prev_u=(prev[:4], u[:4]), split_rows=8, **kw)
     for w, p, rows_dim in zip(whole, part, (0, 1, 1, 0, 0)):
         assert torch.equal(w.narrow(rows_dim, 0, 4), p)
+
+
+def _cdf_step(logits, prev, u, sampler):
+    """Per row, the (low, high) edges of the step of the sampler's CDF
+    (over its kept top-k candidates) that ``u`` falls on."""
+    from tortoise_tpu_torch.ops.sampling import process_logits_topk
+
+    probs, _ = process_logits_topk(logits.float(), prev, *sampler)
+    cum = torch.cumsum(probs, dim=-1)
+    pos = torch.clamp((cum < u).sum(dim=-1, keepdim=True),
+                      max=probs.shape[-1] - 1)
+    hi = torch.gather(cum, -1, pos)
+    lo = torch.where(pos > 0, torch.gather(cum, -1, (pos - 1).clamp(min=0)),
+                     0.0)
+    return lo, hi
+
+
+def firm_rows(logits, prev, u, sampler, noise, draw=TA.sample_plain,
+              trials=16):
+    """(B,) bool: rows whose plain draw (``draw``, kernel A's sampler by
+    default) at ``u`` keeps its token when the logits get Gaussian noise
+    of std ``noise`` (``trials`` draws)."""
+    g = torch.Generator(device=logits.device).manual_seed(7)
+    want = draw(logits, prev, u, sampler)
+    firm = torch.ones_like(want, dtype=torch.bool)
+    for _ in range(trials):
+        shaken = logits + noise * torch.randn(
+            logits.shape, generator=g, device=logits.device)
+        firm &= draw(shaken, prev, u, sampler) == want
+    return firm[:, 0]
+
+
+def _token_step(logits, prev, token, sampler):
+    """(lo, hi) (B,) of the plain CDF's step of ``token`` (B, 1) over the
+    kept top-k candidates, and whether the token is among them."""
+    from tortoise_tpu_torch.ops.sampling import process_logits_topk
+
+    probs, ids = process_logits_topk(logits.float(), prev, *sampler)
+    hit = ids == token
+    hi = torch.where(hit, torch.cumsum(probs, dim=-1), 0.0).sum(-1)
+    return hi - torch.where(hit, probs, 0.0).sum(-1), hi, hit.any(-1)
+
+
+def edge_shift(logits, other, prev, u, sampler):
+    """(B,): how far the logits ``other`` move the edge nearer ``u`` of the
+    plain CDF's step (on ``logits``) that ``u`` falls on (1 where the
+    step's token leaves ``other``'s candidates). A draw closer than this
+    to its step's edge flips between the two logits."""
+    from tortoise_tpu_torch.ops.sampling import process_logits_topk
+
+    probs, ids = process_logits_topk(logits.float(), prev, *sampler)
+    pos = torch.clamp((torch.cumsum(probs, -1) < u).sum(-1, keepdim=True),
+                      max=probs.shape[-1] - 1)
+    token = torch.gather(ids, -1, pos)
+    lo, hi, _ = _token_step(logits, prev, token, sampler)
+    lo_o, hi_o, kept = _token_step(other, prev, token, sampler)
+    moved = torch.where(u[:, 0] - lo <= hi - u[:, 0], lo_o - lo, hi_o - hi)
+    return torch.where(kept, moved.abs(), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_decode_kernel_at_full_width_on_card(cuda_device, b):
+    """Kernel A at production width (30 layers of 1024, 16 heads, FFN
+    4096, the 8,194-logit head) over a 640-slot cache, without and with
+    the head and sampler: hidden, k and v rows and logits within 2e-2,
+    and the in-kernel sampler picks the plain sampler's token on the
+    kernel's own logits, exactly. The two paths' logits differ within
+    tolerance, so a draw near an edge of its CDF step may rightly flip.
+    Uniform rows (300 valid slots; B = 1 and 4) draw at the raw uniforms
+    and must give the plain path's token on every row whose distance to
+    its step's nearer edge is larger than the kernel's logits move that
+    edge (``edge_shift``). Ragged rows (300 - 7 * row slots, as in a
+    server batch; B = 4 and 16, its largest bucket) draw at the middle of
+    each row's step of the plain CDF and must agree on every row whose
+    plain draw holds under Gaussian logit noise of twice the paths' RMS
+    difference. Either check needs at least max(1, b // 2) such rows.
+    Each batch draws its inputs right after the weights, on their
+    generator."""
+    times = kernel_times()
+    V = 8194
+    blocks, ck, cv, uniform, x, full = times.kernel_a_inputs(torch, b)
+    prev, u = full["prev_u"]
+    layouts = [("uniform", uniform)] if b < 16 else []
+    if b > 1:
+        ragged = torch.full_like(uniform, -1e30)
+        for i in range(b):
+            ragged[i, :300 - 7 * i] = 0.0
+        layouts.append(("ragged", ragged))
+    for layout, bias in layouts:
+        args = (blocks, ck, cv, bias, x)
+        for kw in ({}, full):
+            got = TA.fused_decode_trunk(*args, **kw)
+            want = TA.fused_decode_trunk_plain(*args, **kw)
+            pairs = list(zip(got[:4], want[:4]))
+            if kw:  # the V real logits (the padded ones sit at -1e30)
+                pairs[3] = (got[3][:, :V], want[3][:, :V])
+            for g, w in pairs:
+                assert_close(g.float().cpu().numpy(),
+                             w.float().cpu().numpy(), 2e-2)
+        tokens = got[4]
+        assert torch.equal(tokens, TA.sample_plain(got[3], prev, u,
+                                                   full["sampler"]))
+        rms = float((got[3][:, :V] - want[3][:, :V]).float().pow(2).mean()
+                    .sqrt())
+        lo, hi = _cdf_step(want[3], prev, u, full["sampler"])
+        if layout == "uniform":
+            gap = torch.minimum(u - lo, hi - u)[:, 0]
+            shift = edge_shift(want[3], got[3], prev, u, full["sampler"])
+            clear = gap > shift
+            assert int(clear.sum()) >= max(1, b // 2), (gap, shift, rms)
+            assert torch.equal(tokens[:, 0][clear], want[4][:, 0][clear]), (
+                tokens[:, 0], want[4][:, 0], gap, shift, rms)
+            continue
+        mid = dict(full, prev_u=(prev, ((lo + hi) / 2).float()))
+        tok_k = TA.fused_decode_trunk(*args, **mid)[4]
+        tok_p = TA.fused_decode_trunk_plain(*args, **mid)[4]
+        firm = firm_rows(want[3], prev, mid["prev_u"][1], full["sampler"],
+                         2 * rms)
+        assert int(firm.sum()) >= max(1, b // 2), (firm, rms)
+        assert torch.equal(tok_k[:, 0][firm], tok_p[:, 0][firm]), (
+            tok_k, tok_p)
 
 
 @pytest.mark.cuda
@@ -231,16 +372,25 @@ def test_grouped_kernel_d1_matches_plain_on_card(cuda_device, d, n_valid):
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
 
 
+# (head width, b, t, heads, key masks): a ragged T, 16 CFG rows, a masked
+# row at 3 heads of each width; then the fallback's 32 heads of 32 at the
+# denoiser's (2, 2176) unmasked and masked, a ragged T = 1000 and a server
+# batch's 16 CFG rows at T = 1000
+D1_CASES = [(d, b, t, 3, lens) for d in (32, 64, 128)
+            for b, t, lens in ((2, 333, None), (16, 200, "ragged"),
+                               (2, 260, (260, 177)))] + [
+    (32, 2, 2176, 32, None), (32, 2, 2176, 32, (2176, 1900)),
+    (32, 2, 1000, 32, (1000, 937)), (32, 16, 1000, 32, "ragged")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 64, 128])
-@pytest.mark.parametrize("b,t,lens", [(2, 333, None), (16, 200, "ragged"),
-                                      (2, 260, (260, 177))])
-def test_d1_on_the_tma_body_matches_plain_on_card(cuda_device, d, b, t,
+@pytest.mark.parametrize("d,b,t,h,lens", D1_CASES)
+def test_d1_on_the_tma_body_matches_plain_on_card(cuda_device, d, b, t, h,
                                                   lens):
     """Kernel D1's bf16 work on the wgmma + TMA body: a ragged T (not a
     multiple of the 64-key tile or the 128-row block), 16 batch rows with
-    ragged key masks (a server batch's CFG rows), and a masked row."""
-    h = 3
+    ragged key masks (a server batch's CFG rows), and a masked row; the
+    diffusion fallback's shapes at full width."""
     qkv = torch.tensor(_qkv(b, t, h, d, d + t)).bfloat16().to(cuda_device)
     q, k, v = (qkv.reshape(b, t, h, 3, d)[:, :, :, p].transpose(1, 2)
                for p in range(3))
@@ -321,27 +471,42 @@ def test_tma_body_copies_a_view_that_breaks_the_16_byte_rule(cuda_device):
     assert_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
 
 
+D2_MODES = ["none", "materialized", "buckets", "causal_masked", "formula_f32",
+            "unequal_formula_masked", "causal_formula",
+            "materialized_unequal"]
+# (dtype, tol, mode, head width, (b, heads, Tq, Tkv)): every mode at every
+# width at (2, 2, 150) (Tkv 203 when unequal); then bf16 at the main
+# paths' shapes: causal with a key mask at the AR latent pass's (8, 16,
+# 535), the bucket bias, a materialized bias and causal with the formula
+# bias at (2, 16, 1000), the formula bias at Tq 256 x Tkv 1000
+D2_CASES = [(dtype, tol, mode, d, (2, 2, 150, 203 if "unequal" in mode
+                                   else 150))
+            for d in (16, 32, 64, 128)
+            for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4))
+            for mode in D2_MODES] + [
+    (torch.bfloat16, 2e-2, mode, 64, shape)
+    for mode, shape in (("causal_masked", (8, 16, 535, 535)),
+                        ("buckets", (2, 16, 1000, 1000)),
+                        ("materialized", (2, 16, 1000, 1000)),
+                        ("unequal_formula_masked", (2, 16, 256, 1000)),
+                        ("causal_formula", (2, 16, 1000, 1000)))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
-@pytest.mark.parametrize("mode", ["none", "materialized", "buckets",
-                                  "causal_masked", "formula_f32",
-                                  "unequal_formula_masked", "causal_formula",
-                                  "materialized_unequal"])
+@pytest.mark.parametrize("dtype,tol,mode,d,shape", D2_CASES)
 def test_generic_kernel_d2_matches_plain_on_card(cuda_device, dtype, tol,
-                                                 mode, d):
+                                                 mode, d, shape):
     """Kernel D2 in each of its modes at every head width: bf16 on the
     wgmma + TMA body, f32 on the split-TF32 body, each one launch of D2 with an
     f32 output. Tq != Tkv: 150 query rows over 203 keys with the formula
     bias and a ragged key mask (203 % 4 != 0, so a materialized bias is
     read from a padded copy); causal with the formula bias is D2 too
     (the JAX package's D1 is non-causal). "formula_f32" is D1's rule
-    (bf16 output for bf16 inputs)."""
+    (bf16 output for bf16 inputs). The bf16 modes again at the main
+    paths' shapes."""
     from tortoise_tpu_torch.ops.relpos import relative_position_buckets
 
-    b, h, t = 2, 2, 150
-    tkv = 203 if "unequal" in mode else t
+    b, h, t, tkv = shape
     g = torch.Generator(device=cuda_device).manual_seed(5 + d)
     q = torch.randn((b, h, t, d), generator=g, device=cuda_device).to(dtype)
     k, v = (torch.randn((b, h, tkv, d), generator=g, device=cuda_device)
@@ -709,6 +874,32 @@ def test_int8_kernel_f_past_the_old_bias_window_on_card(cuda_device, dtype,
     got = TI.flash_packed_i8(qkv.to(dtype), 1, valid, table)
     assert got.dtype == dtype
     _assert_i8_close(got, qkv.to(dtype), 1, valid, table)
+
+
+@pytest.mark.cuda
+def test_int8_ab_script_launches_f_and_b_once_a_call_on_card(cuda_device):
+    """scripts/torch_ubench_attn_int8_ab.py (kernel F against kernel B at
+    the denoiser's shape, chained and timed) in a fresh process on the
+    card: it exits 0 and its result line counts as many launches of F, of
+    its quantize pass and of B as the calls it made of each, with F's
+    error against B and both times."""
+    import json
+    import subprocess
+    import sys
+
+    script = os.path.join(ROOT, "scripts", "torch_ubench_attn_int8_ab.py")
+    proc = subprocess.run([sys.executable, script], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"ab"')]
+    assert lines, proc.stdout[-3000:]
+    ab = json.loads(lines[-1])["ab"]
+    assert ab["calls"] > 1
+    assert ab["launches"] == {"flash_attention_packed": ab["calls"],
+                              "flash_packed_i8": ab["calls"],
+                              "int8_quantize_kv": ab["calls"]}, ab
+    assert ab["i8_ms"] > 0 and ab["bf16_ms"] > 0, ab
+    assert np.isfinite(ab["max_abs_err"]) and np.isfinite(ab["rel_err"]), ab
 
 
 @pytest.mark.cuda
@@ -1103,31 +1294,17 @@ I8_SHAPES = [(1024, 3072, 0), (1024, 1024, 0), (2048, 1024, 0),
              (1024, 1024, 1)]
 
 
-def _i8_eager(monkeypatch, x, pair, bias, out_dtype, padding):
-    """The product by the eager chain on the card (the route turned off):
-    ``conv1d_nwc``'s int8 branch or ``_linear``."""
-    from tortoise_tpu_torch.models import diffusion as TDM
-    from tortoise_tpu_torch.ops import conv
-    from tortoise_tpu_torch.ops.cuda import int8_product as TQ
-
-    with monkeypatch.context() as m:
-        m.setattr(TQ, "takes_kernels", lambda *a, **k: False)
-        if padding:
-            return conv.conv1d_nwc(x, pair, bias, padding=1,
-                                   compute_dtype=out_dtype,
-                                   out_dtype=out_dtype)
-        return TDM._linear(x, pair, bias, out_dtype, out_dtype)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k_in,n,padding", I8_SHAPES)
 def test_int8_product_kernels_equal_the_eager_chain_on_card(
-        cuda_device, monkeypatch, dtype, k_in, n, padding):
+        cuda_device, dtype, k_in, n, padding):
     """Q8's codes and scales equal the eager quantize, E8 its epilogue on
     the same sums, and the route the eager product (bf16, f32 and f32
     without a cast, with and without the bias), bit for bit; each route
     call launches Q8 and E8 once."""
+    from test_torch_int8_product import eager_product
+
     from tortoise_tpu_torch.ops.basic import mm_bf16, quantize_cols
     from tortoise_tpu_torch.ops.cuda import int8_product as TQ
 
@@ -1156,7 +1333,7 @@ def test_int8_product_kernels_equal_the_eager_chain_on_card(
         got = TQ.int8_product(x, pair, bias, out_dtype, padding)
         assert (TQ.quantize_rows.launches, TQ.epilogue.launches) == (
             q8 + 1, e8 + 1)
-        want = _i8_eager(monkeypatch, x, pair, bias, out_dtype, padding)
+        want = eager_product(x, pair, bias, out_dtype, padding)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want), out_dtype
 
@@ -1178,8 +1355,10 @@ def test_int8_denoiser_eval_runs_q8_and_e8_at_every_product_on_card(
         cuda_device, monkeypatch):
     """At the published widths and depths, one int8 CFG eval at the cell's
     T (2176, 40 padded frames) launches Q8 and E8 59 times each and gives
-    the eager route's bits (the parent's eval); the step graph of the
-    denoising loop holds the 59 launches and its replays add them."""
+    the eager chain's bits; the step graph of the denoising loop holds
+    the 59 launches and its replays add them."""
+    from test_torch_int8_product import eager_product
+
     from tortoise_tpu_torch.config import DiffusionConfig
     from tortoise_tpu_torch.io.checkpoint import random_diffusion_params
     from tortoise_tpu_torch.models import diffusion as TDM
@@ -1202,7 +1381,7 @@ def test_int8_denoiser_eval_runs_q8_and_e8_at_every_product_on_card(
     counts = launch_counts()
     assert (counts["int8_quantize_rows"], counts["int8_epilogue"]) == (59, 59)
     with monkeypatch.context() as m:
-        m.setattr(TQ, "takes_kernels", lambda *a, **k: False)
+        m.setattr(TQ, "int8_product", eager_product)
         want = TDM.denoise(params, cfg, x, code, 400, None, mask,
                            torch.bfloat16)
     assert launch_counts()["int8_quantize_rows"] == 59

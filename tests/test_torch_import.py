@@ -104,15 +104,44 @@ def test_port_runs_with_the_jax_package_refused():
 
 
 def test_chip_smoke_imports_without_jax_and_needs_a_card():
-    """chip_smoke.py imports nothing of JAX and, without a card, exits
-    nonzero and prints no result line."""
+    """chip_smoke.py runs with imports of JAX and the JAX package refused
+    and, without a card, exits nonzero before it runs or builds anything
+    and prints no kernels line."""
+    path = os.path.join(ROOT, "chip_smoke.py")
+    run = REFUSE + (f"import runpy\nsys.argv = [{path!r}]\n"
+                    f"sys.exit(runpy.run_path({path!r})['main']())\n")
     env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
-                          env=env, capture_output=True, text=True,
-                          timeout=300)
+    proc = subprocess.run([sys.executable, "-c", run], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
-    assert '"ok"' not in proc.stdout
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+    assert "needs a CUDA card" in proc.stderr, proc.stderr
+    assert "refused" not in proc.stderr and "Traceback" not in proc.stderr
+    assert '"kernels"' not in proc.stdout
+    with open(path) as f:
+        src = f.read()
+    assert "import jax" not in src and "from jax" not in src
+    assert "tortoise_tpu." not in src.replace("tortoise_tpu_torch", "")
+
+
+CARD_SCRIPTS = ["torch_kernel_times.py", "torch_int8_variants.py",
+                "torch_f32_body_variants.py"]
+
+
+@pytest.mark.parametrize("script", CARD_SCRIPTS)
+def test_card_scripts_import_without_jax_and_need_a_card(script):
+    """The card-only scripts (the kernel timer and the two variant
+    timers) run with imports of JAX and the JAX package refused and,
+    without a card, exit nonzero before they build anything."""
+    path = os.path.join(ROOT, "scripts", script)
+    run = REFUSE + (f"import runpy\nsys.argv = [{path!r}]\n"
+                    f"runpy.run_path({path!r}, run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", run], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "needs a CUDA card" in proc.stderr, proc.stderr
+    assert "refused" not in proc.stderr and "Traceback" not in proc.stderr
+    with open(path) as f:
         src = f.read()
     assert "import jax" not in src and "from jax" not in src
     assert "tortoise_tpu." not in src.replace("tortoise_tpu_torch", "")

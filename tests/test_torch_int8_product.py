@@ -1,15 +1,16 @@
-"""The int8 product's kernel route (``ops.cuda.int8_product``: Q8, the
-bf16 GEMM per tap, E8) on the CPU, where Q8 and E8 run their plain
-models: the route against the eager chain it replaces on the card
-(``pdot_int8act``, ``conv1d_nwc``'s int8 branch, ``_linear``'s cast and
-bias), bit for bit; the padded-buffer tap indexing against the eager
-per-tap slices; a whole denoiser eval on the route; which calls take it;
-and the arguments it refuses. The kernels themselves run only on a card
-(tests/test_torch_cuda.py). No tolerance: every comparison is exact.
+"""The int8 product (``ops.cuda.int8_product.int8_product``) on the CPU:
+its plain steps against the eager chain the port ran before it
+(``eager_product``, a copy kept here as the reference), bit for bit,
+with the arguments the kernels would get held to the kernels' checks;
+the padded-buffer tap indexing against the eager per-tap slices; a whole
+denoiser eval; which calls take the kernels and where the
+tensor-parallel hooks act; and the arguments the kernels refuse. Here a
+"card" is a CPU tensor that says it is on one and a launch is faked; the
+kernels themselves run only on a card (tests/test_torch_cuda.py). No
+tolerance: every comparison is exact.
 """
 
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -26,6 +27,40 @@ from tortoise_tpu_torch.pipeline import diffusion_stage as DS
 torch.set_num_threads(1)  # the tier-1 run's workers share the cores
 
 
+def eager_product(x, w, b=None, out_dtype=None, padding=0, row_max=None,
+                  reduce=None):
+    """The eager chain the port ran before ``int8_product``: the bare
+    product of ``pdot_int8act`` (padding 0: f32 codes, one matmul, the
+    hook on the sums, the row scales, the column scales), the tap loop of
+    ``conv1d_nwc``'s int8 branch (padding 1: the f32 codes and scales
+    padded, one matmul per tap slice, the hook on the stacked sums, the
+    taps summed in order), then the cast and the bias as ``_linear`` and
+    ``conv1d_nwc`` added them."""
+    wq, scale = w
+    xq, s_row = basic.quantize_rows(x, row_max)
+    if padding == 0:
+        acc = basic.mm_bf16(xq, wq)
+        out = (acc if reduce is None else reduce(acc)) * s_row * scale
+    else:
+        t, k = x.shape[1], 2 * padding + 1
+        xqp = F.pad(xq, (0, 0, padding, padding))
+        srp = F.pad(s_row, (0, 0, padding, padding))
+        wq3 = wq.reshape(k, wq.shape[0] // k, wq.shape[-1])
+        taps = [basic.mm_bf16(xqp[:, j:j + t], wq3[j]) for j in range(k)]
+        if reduce is not None:
+            taps = reduce(torch.stack(taps)).unbind(0)
+        out = None
+        for j in range(k):
+            part = taps[j] * srp[:, j:j + t]
+            out = part if out is None else out + part
+        out = out * scale
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    if b is not None:
+        out = out + (b.to(out_dtype) if out_dtype else b)
+    return out
+
+
 def _inputs(b, t, k_in, n, taps, dtype, padded, seed):
     """x (b, t, k_in) with the last frames of every row but the first
     zeroed when ``padded`` (as the group norm before each product leaves
@@ -39,36 +74,95 @@ def _inputs(b, t, k_in, n, taps, dtype, padded, seed):
     return x.to(dtype), basic.quantize_cols(w), bias
 
 
+class _OnACard(torch.Tensor):
+    """A CPU tensor that says it is on a card: the wrappers' choice reads
+    nothing else."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def _card(t):
+    return t.as_subclass(_OnACard)
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Fakes the kernel library: a launch that passed its wrapper's checks
+    is recorded here (Q8 or E8) and writes nothing. The counters are put
+    back afterwards."""
+    seen = []
+
+    class Library:
+        def tt_int8_quantize_rows(self, *args):
+            seen.append("Q8")
+            return 0
+
+        def tt_int8_epilogue(self, *args):
+            seen.append("E8")
+            return 0
+
+    monkeypatch.setattr(I8.build, "library", Library)
+    monkeypatch.setattr(I8.build, "stream_ptr", lambda: 0)
+    monkeypatch.setattr(I8.quantize_rows, "launches", 0)
+    monkeypatch.setattr(I8.epilogue, "launches", 0)
+    return seen
+
+
+def kernel_checks(x, pair, bias=None, out_dtype=None, padding=0):
+    """``int8_product``'s steps as a card runs them without hooks, up to
+    each kernel's launch (faked; the ``launches`` fixture): the pair's
+    check, then Q8's wrapper on x said to be on a card, then E8's wrapper
+    on the plain steps' sums said to be on a card. Raises what the first
+    refusing wrapper raises."""
+    wq, scale = pair
+    taps, _ = I8._check_pair(x, wq, padding)
+    I8.quantize_rows(_card(x), padding)
+    codes, s_row = I8.quantize_rows_plain(x, padding)
+    I8.epilogue([_card(a) for a in I8._tap_sums(codes, wq, taps)],
+                _card(s_row), scale, bias, out_dtype)
+
+
 @pytest.mark.parametrize("b", [1, 2, 16])
 @pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, None])
 @pytest.mark.parametrize("padding", [0, 1])
-def test_route_equals_the_eager_chain(b, padded, out_dtype, padding):
+def test_route_equals_the_eager_chain(launches, b, padded, out_dtype,
+                                     padding):
     """k1 as ``_linear`` calls it (the qkv's N = 3 K), k3 as the
-    resblock's ``conv1d_nwc`` calls it, on the bf16 plane's input."""
+    resblock's ``conv1d_nwc`` calls it, on the bf16 plane's input: the
+    product and the callers give the eager bits, and a card's kernels
+    take the call."""
     n = 96 if padding else 192
     x, pair, bias = _inputs(b, 24, 64, n, 2 * padding + 1, torch.bfloat16,
                             padded and b > 1, b + padding)
-    got = I8.int8_product(x, pair, bias, out_dtype, padding)
+    want = eager_product(x, pair, bias, out_dtype, padding)
     if padding:
-        want = conv.conv1d_nwc(x, pair, bias, padding=1,
-                               compute_dtype=out_dtype, out_dtype=out_dtype)
+        caller = conv.conv1d_nwc(x, pair, bias, padding=1,
+                                 compute_dtype=out_dtype, out_dtype=out_dtype)
     else:
-        want = TDM._linear(x, pair, bias, out_dtype, out_dtype)
-    assert got.dtype == want.dtype and torch.equal(got, want)
+        caller = TDM._linear(x, pair, bias, out_dtype, out_dtype)
+    for got in (I8.int8_product(x, pair, bias, out_dtype, padding), caller):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    kernel_checks(x, pair, bias, out_dtype, padding)
+    assert launches == ["Q8", "E8"]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(6, 48), (2, 5, 64)])
-def test_route_equals_pdot_int8act(dtype, shape):
+def test_route_equals_pdot_int8act(launches, dtype, shape):
     """The bare product, f32 out and no bias, on any leading dims and on
-    an f32 input."""
+    an f32 input: ``pdot_int8act`` and the product give the eager bits,
+    and a card's kernels take the call."""
     g = torch.Generator().manual_seed(len(shape))
     x = (torch.randn(shape, generator=g) * 3).to(dtype)
     pair = basic.quantize_cols(torch.randn((shape[-1], 20), generator=g))
-    got = I8.int8_product(x, pair)
-    assert got.dtype == torch.float32
-    assert torch.equal(got, basic.pdot_int8act(x, pair))
+    want = eager_product(x, pair)
+    for got in (basic.pdot_int8act(x, pair), I8.int8_product(x, pair)):
+        assert got.dtype == torch.float32 and torch.equal(got, want)
+    kernel_checks(x, pair)
+    assert launches == ["Q8", "E8"]
 
 
 def test_padded_buffer_taps_equal_the_per_tap_slices():
@@ -100,48 +194,81 @@ def test_padded_buffer_taps_equal_the_per_tap_slices():
     assert not s_row[:, [0, -1]].any() and not codes[:, [0, -1]].any()
     taps = [basic.mm_bf16(flat, wq3[j]) for j in range(3)]
     got = I8.epilogue(taps, s_row, scale, None, torch.bfloat16)
-    want = conv.conv1d_nwc(x, (wq, scale), padding=1,
-                           compute_dtype=torch.bfloat16,
-                           out_dtype=torch.bfloat16)
-    assert torch.equal(got, want)
+    assert torch.equal(got, eager_product(x, (wq, scale), None,
+                                          torch.bfloat16, 1))
 
 
-def test_tensor_parallel_calls_keep_the_eager_route(monkeypatch):
-    """A card tensor takes the kernels unless ``row_max`` or ``reduce`` is
-    given; with the route opened on the CPU, the tp calls of
-    ``pdot_int8act`` and ``conv1d_nwc`` still run the eager chain."""
-    card = types.SimpleNamespace(is_cuda=True)
+def test_tensor_parallel_calls_keep_the_eager_route(launches, monkeypatch):
+    """The kernels run only on a card without hooks: Q8 on a card's x
+    without ``row_max``, E8 on a card's sums without ``reduce``. The CPU,
+    and hooks on either device, run the plain steps with ``row_max`` on
+    the rows' absmax before the codes and ``reduce`` on the stacked tap
+    sums before the scales, and give the eager chain's bits with the
+    same hooks."""
+    seen = []
+    plain = I8.quantize_rows_plain
 
-    def hook(v):
-        return v
+    def row_max(a):
+        seen.append(("row_max", tuple(a.shape)))
+        return a * 2
 
-    assert I8.takes_kernels(card)
-    assert not I8.takes_kernels(card, row_max=hook)
-    assert not I8.takes_kernels(card, reduce=hook)
-    assert not I8.takes_kernels(types.SimpleNamespace(is_cuda=False))
-    calls = []
-    monkeypatch.setattr(I8, "takes_kernels",
-                        lambda x, row_max=None, reduce=None:
-                        row_max is None and reduce is None)
-    monkeypatch.setattr(I8, "int8_product",
-                        lambda *a, **k: calls.append(a) or None)
+    def reduce(sums):
+        seen.append(("reduce", tuple(sums.shape)))
+        return sums + 1
+
     x, pair, _ = _inputs(2, 8, 64, 32, 1, torch.bfloat16, False, 5)
-    assert basic.pdot_int8act(x, pair, hook, hook) is not None
-    _, pair3, _ = _inputs(2, 8, 64, 32, 3, torch.bfloat16, False, 6)
-    assert conv.conv1d_nwc(x, pair3, padding=1, row_max=hook,
-                           reduce=hook) is not None
-    assert calls == []
-    assert basic.pdot_int8act(x, pair) is None
-    assert conv.conv1d_nwc(x, pair3, padding=1) is None
-    assert len(calls) == 2
+    x3, pair3, _ = _inputs(2, 8, 64, 32, 3, torch.bfloat16, False, 6)
+    for xi, padding in ((x, 0), (x3, 1)):
+        codes, s_row = I8.quantize_rows(_card(xi), padding)
+        assert launches == ["Q8"] and I8.quantize_rows.launches == 1
+        assert codes.shape == plain(xi, padding)[0].shape
+        assert s_row.shape == plain(xi, padding)[1].shape
+        for q in (I8.quantize_rows(_card(xi), padding, row_max),
+                  I8.quantize_rows(xi, padding)):
+            assert launches == ["Q8"]
+        assert seen == [("row_max", (2, 8, 1))]
+        codes, s_row = plain(xi, padding)
+        sums = I8._tap_sums(codes, pair3[0] if padding else pair[0],
+                            2 * padding + 1)
+        scale = pair3[1] if padding else pair[1]
+        I8.epilogue([_card(a) for a in sums], _card(s_row), scale)
+        assert launches == ["Q8", "E8"] and I8.epilogue.launches == 1
+        want = I8.epilogue_plain([a + 1 for a in sums], s_row, scale)
+        got = I8.epilogue([_card(a) for a in sums], _card(s_row), scale,
+                          reduce=reduce)
+        assert torch.equal(got.as_subclass(torch.Tensor), want)
+        assert launches == ["Q8", "E8"]
+        launches.clear()
+        seen.clear()
+        I8.quantize_rows.launches = I8.epilogue.launches = 0
+
+    def first_plain_step(x, padding, row_max):  # the codes on the CPU
+        seen.append(("plain", type(x).__name__))
+        return plain(x.as_subclass(torch.Tensor), padding, row_max)
+
+    monkeypatch.setattr(I8, "quantize_rows_plain", first_plain_step)
+    for xi, p, padding in ((_card(x), pair, 0), (x, pair, 0),
+                           (_card(x3), pair3, 1), (x3, pair3, 1)):
+        seen.clear()
+        got = I8.int8_product(xi, p, None, None, padding, row_max, reduce)
+        taps, rows = 2 * padding + 1, 2 * (8 + 2 * padding)
+        assert seen == [("plain", type(xi).__name__), ("row_max", (2, 8, 1)),
+                        ("reduce", (taps, 2, rows // 2, 32))]
+        want = eager_product(xi.as_subclass(torch.Tensor), p, None, None,
+                             padding, row_max, reduce)
+        assert torch.equal(got.as_subclass(torch.Tensor), want)
+    assert launches == []
+    seen.clear()
+    I8.int8_product(_card(x), pair)
+    assert launches == ["Q8"] and seen == []
 
 
-def test_denoiser_eval_on_the_route_gives_the_eager_bits(monkeypatch):
+def test_denoiser_eval_on_the_route_gives_the_eager_bits(monkeypatch,
+                                                         launches):
     """At the published depths (3 integrator layers, 10 main, 3 tail
-    resblocks; narrow widths), a CFG eval on the int8 plane sends all 59
-    int8 products down the route (each layer's qkv, proj and two resblock
-    convs, the tail's convs, the integrating product) and gives the eager
-    eval's bits."""
+    resblocks; narrow widths), a CFG eval on the int8 plane gives the
+    eager eval's bits, and a card's kernels take all 59 int8 products (each layer's qkv, proj and two resblock
+    convs, the tail's convs, the integrating product)."""
     cfg = dataclasses.replace(DiffusionConfig(), d_model=128, n_head=2,
                               timestep_dim=128, use_flash=True)
     params = DS._prepare_params(random_diffusion_params(cfg, 4, fast=True),
@@ -152,17 +279,22 @@ def test_denoiser_eval_on_the_route_gives_the_eager_bits(monkeypatch):
     code = torch.tensor(rng.normal(0, 1, (2, cfg.d_model, t)).astype(
         np.float32))
     mask = torch.arange(t)[None, :] < t - 7
-    want = TDM.denoise(params, cfg, x, code, 400, None, mask, torch.bfloat16)
+    with monkeypatch.context() as m:
+        m.setattr(I8, "int8_product", eager_product)
+        want = TDM.denoise(params, cfg, x, code, 400, None, mask,
+                           torch.bfloat16)
+    assert torch.equal(TDM.denoise(params, cfg, x, code, 400, None, mask,
+                                   torch.bfloat16), want)
     calls = []
-    route = I8.int8_product
 
-    def counted(*args, **kwargs):
-        calls.append(args[3:] + tuple(kwargs.values()))
-        return route(*args, **kwargs)
+    def counted(x, w, b=None, out_dtype=None, padding=0, row_max=None,
+                reduce=None):
+        assert row_max is None and reduce is None
+        calls.append((out_dtype, padding))
+        kernel_checks(x, w, b, out_dtype, padding)
+        return product(x, w, b, out_dtype, padding)
 
-    monkeypatch.setattr(I8, "takes_kernels",
-                        lambda x, row_max=None, reduce=None:
-                        row_max is None and reduce is None)
+    product = I8.int8_product
     monkeypatch.setattr(I8, "int8_product", counted)
     got = TDM.denoise(params, cfg, x, code, 400, None, mask, torch.bfloat16)
     assert torch.equal(got, want)
@@ -172,7 +304,8 @@ def test_denoiser_eval_on_the_route_gives_the_eager_bits(monkeypatch):
 
 def refusals(device):
     """{name: (x, pair, bias, out_dtype, padding)}: calls the kernels do
-    not take, which ``int8_product`` refuses on either device."""
+    not take, which ``int8_product`` refuses on a card (the pair's check,
+    then Q8's, then E8's)."""
     def pair(rows, n, wdt=torch.int8, sdt=torch.float32, sn=None):
         return (torch.zeros((rows, n), dtype=wdt, device=device),
                 torch.ones((1, sn or n), dtype=sdt, device=device))
@@ -213,6 +346,6 @@ REFUSALS = sorted(refusals("cpu"))
 
 
 @pytest.mark.parametrize("name", REFUSALS)
-def test_route_refuses_what_the_kernels_do_not_take(name):
+def test_route_refuses_what_the_kernels_do_not_take(launches, name):
     with pytest.raises(ValueError, match="int8_product"):
-        I8.int8_product(*refusals("cpu")[name])
+        kernel_checks(*refusals("cpu")[name])

@@ -631,3 +631,183 @@ def test_main_refuses_cuda_without_a_card(monkeypatch):
     assert serve.build_parser().parse_args([]).device == "cuda"
     with pytest.raises(RuntimeError, match="no CUDA card"):
         serve.main(["--random-weights", "--tiny"])
+
+
+# ---- the server on the card at full width (cuda-marked; skip here) ----
+
+
+@pytest.fixture(scope="module")
+def card_models():
+    """TortoiseModels.random(0) at the published widths, the denoiser on
+    its kernel (the server turns it on on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return TortoiseModels.random(0, diffusion={"use_flash": True})
+
+
+@pytest.mark.cuda
+def test_http_batch_on_card_launches_a_b_and_c(card_models, tmp_path):
+    """Six concurrent POST /synthesize (3 text lengths in the 32-bucket, 2
+    voice files) form ONE batch padded to 8 on the bf16 + int8 plane:
+    every reply a WAV of its row's one-shot length with finite samples;
+    the batch launches A, B and C (its prefill and latent passes)."""
+    from test_torch_device import STANDIN_TOKENS, assert_launched
+    from torch_mesh_ranks import card_audio_length
+
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    voices = []
+    for i in range(2):
+        path = str(tmp_path / f"voice{i}.bin")
+        np.random.default_rng(10 + i).normal(0, 0.5, (1024,)).astype(
+            np.float32).tofile(path)
+        voices.append(path)
+    # the two rows of one length differ in one id, so every reply maps to
+    # its own row
+    bodies = [{"tokens": [255, 20 + i % 2] + STANDIN_TOKENS[2:n - 1] + [0],
+               "voice": voices[i % 2], "seed": 4}
+              for i, n in enumerate((30, 30, 22, 22, 14, 14))]
+    server = serve.SynthesisServer(card_models, compute_dtype=torch.bfloat16,
+                                   int8_weights=True, max_batch=8,
+                                   max_wait_ms=2000, device="cuda")
+    futures, submit = [], server.submit
+
+    def recording_submit(*a, **k):
+        futures.append(submit(*a, **k))
+        return futures[-1]
+
+    server.submit = recording_submit
+    replies = [None] * len(bodies)
+    with _Http(server) as h:
+        def post(i):
+            conn = http.client.HTTPConnection("127.0.0.1", h.port,
+                                              timeout=600)
+            replies[i] = _post(conn, "/synthesize", bodies[i])
+            conn.close()
+
+        reset_launch_counts()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        stats = h.server.stats()
+    assert all(r is not None and r[0].status == 200 for r in replies)
+    assert (stats["batches"], stats["rows"], stats["padded_rows"]) == (1, 6, 2)
+    by_tokens = {tuple(f.result(timeout=WAIT).tokens): f.result()
+                 for f in futures}
+    for body, (_, wav) in zip(bodies, replies):
+        audio = np.frombuffer(wav[44:], dtype=np.float32)
+        res = by_tokens[tuple(body["tokens"])]
+        assert wav[:4] == b"RIFF" and np.isfinite(audio).all()
+        assert len(audio) == card_audio_length(card_models, res.sequences[0])
+    assert_launched(counts, ("A", "B", "C", "G"))
+
+
+@pytest.mark.cuda
+def test_http_stream_on_card_launches_a_b_and_e(card_models):
+    """POST /stream at the default geometry (window 352, overlap 32, first
+    window 96, margin 32) on the fused-LVC vocoder: a chunked WAV whose
+    float32 frames have the one-shot path's length; it launches A, B and
+    E."""
+    from test_torch_device import STANDIN_TOKENS, assert_launched
+
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tortoise_tpu_torch.pipeline.synthesize import synthesize
+
+    models = dataclasses.replace(card_models, vocoder_cfg=dataclasses.replace(
+        card_models.vocoder_cfg, use_pallas_lvc=True))
+    voice = np.random.default_rng(10).normal(0, 0.5, (1024,)).astype(
+        np.float32)
+    server = serve.SynthesisServer(models, compute_dtype=torch.bfloat16,
+                                   int8_weights=True, default_voice=voice,
+                                   device="cuda")
+    with _Http(server) as h:
+        reset_launch_counts()
+        conn = http.client.HTTPConnection("127.0.0.1", h.port, timeout=600)
+        resp, body = _post(conn, "/stream", {"tokens": STANDIN_TOKENS,
+                                             "seed": 5})
+        conn.close()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        stats = h.server.stats()
+    assert resp.status == 200
+    assert resp.getheader("Transfer-Encoding") == "chunked"
+    assert body[:4] == b"RIFF" and stats.get("streams_completed") == 1
+    audio = np.frombuffer(body[44:], dtype=np.float32)
+    one_shot = synthesize(models, tokens=STANDIN_TOKENS, voice=voice, seed=5,
+                          compute_dtype=torch.bfloat16, int8_weights=True,
+                          device="cuda")
+    assert audio.shape == one_shot.audio.shape and np.isfinite(audio).all()
+    assert_launched(counts, ("A", "B", "E", "G"))
+
+
+class _NumpyStream:
+    """A numpy-seeded random source standing where a stage keeps its
+    torch.Generator, so the card and the CPU draw the same numbers."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+        self.seed = seed
+
+
+@pytest.mark.cuda
+def test_tiny_serving_on_card_agrees_with_cpu(monkeypatch):
+    """The tiny f32 plane's synthesize_batch (3 ragged rows, per-row
+    voices) and stream_synthesize on the card against the CPU, every
+    uniform and normal draw of both from one numpy source: the same
+    tokens, mel and audio within 1e-3 of max |out|."""
+    from test_torch_device import _agree
+
+    from tortoise_tpu_torch.pipeline import ar_stage, common, streaming
+    from tortoise_tpu_torch.pipeline import diffusion_stage as dst
+    from tortoise_tpu_torch.pipeline import vocoder_stage as vst
+    from tortoise_tpu_torch.pipeline.streaming import (
+        collect_stream,
+        stream_synthesize,
+    )
+    from tortoise_tpu_torch.pipeline.synthesize import synthesize_batch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+
+    def draw(kind):
+        def fn(gen, shape, device):
+            x = (gen.rng.random(shape, np.float32) if kind == "u"
+                 else gen.rng.standard_normal(shape, np.float32))
+            return torch.as_tensor(x).to(device)
+        return fn
+
+    for mod, name, fn in (
+            (common, "make_generator", lambda seed, dev: _NumpyStream(seed)),
+            (ar_stage, "draw_uniform", draw("u")),
+            (dst, "draw_normal", draw("n")), (vst, "draw_normal", draw("n")),
+            (streaming, "window_generator",
+             lambda gen, i: _NumpyStream([gen.seed, i]))):
+        monkeypatch.setattr(mod, name, fn)
+    models = TortoiseModels.random(4, tiny=True)
+    models.diffusion_cfg = dataclasses.replace(models.diffusion_cfg,
+                                               n_sample_timesteps=20)
+    rows = [[1, 5, 9, 4, 0], [1, 3, 9, 4, 12, 7, 20, 0],
+            [1, 11, 2, 6, 8, 30, 17, 9, 22, 4, 0]]
+    voices = np.random.default_rng(1).normal(0, 0.5, (3, 64)).astype(
+        np.float32)
+    runs = {dev: synthesize_batch(models, tokens_list=rows, voices=voices,
+                                  seed=6, device=dev)
+            for dev in ("cpu", "cuda")}
+    geom = dict(window_frames=24, overlap_frames=8, first_window_frames=16,
+                vocoder_margin=8)
+    streams = {dev: list(stream_synthesize(
+        models, tokens=rows[2], voice=voices[2], seed=7, device=dev, **geom))
+        for dev in ("cpu", "cuda")}
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        assert g.sequences == c.sequences
+        _agree(g.mel, c.mel)
+        _agree(g.audio, c.audio)
+    assert 2 <= len(streams["cuda"]) == len(streams["cpu"])
+    _agree(collect_stream(streams["cuda"]), collect_stream(streams["cpu"]))

@@ -9,8 +9,8 @@ with f32 sums. The card cannot be asked here, so this file emulates that
 arithmetic in torch and holds it, for every route and head width, against
 the JAX package's f32 attention (``xla_attention`` on the route's
 operands) and against the port's plain version, at 1e-5 of max |out|:
-the tolerance the card holds the kernel to (tests/test_torch_cuda.py,
-chip_smoke.py). A single TF32 product misses it.
+the tolerance the card holds the kernel to (tests/test_torch_cuda.py).
+A single TF32 product misses it.
 """
 
 import importlib

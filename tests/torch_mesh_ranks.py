@@ -1,5 +1,6 @@
 """Rank-side bodies of the port's mesh tests (``test_torch_parallel.py``,
-``test_torch_serve_mesh.py``). Each runs in a spawned gloo rank
+``test_torch_serve_mesh.py``; ``card_dp_tp`` of ``test_torch_device.py``
+on a card). Each runs in a spawned gloo rank
 (``tortoise_tpu_torch.parallel.launch.run_ranks``), imports torch, numpy
 and the port only, and returns numpy results that the pytest process
 holds against the JAX package. The JAX key chains arrive as recorded
@@ -315,3 +316,111 @@ def fail_on_rank_1(rank, world):
     import torch.distributed as dist
 
     dist.barrier()  # rank 0 waits on the rank that died
+
+
+# card_dp_tp's tp part: its tolerance against one rank's outputs
+# (relative), and the depth its batch is cut to (widths stay full: every
+# tp collective is staged through the host under gloo)
+CARD_TP_TOL = 2e-2
+CARD_TP_STEPS = 48
+CARD_TP_DIFFUSION = 20
+
+
+def card_dp_tp(rank, world, rows, voices):
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    device), full width, bf16 + int8. (a) dp (2, 1): synthesize_batch on
+    ``rows``. (b) tp (1, 2): one prefill + decode_step and one denoiser
+    eval against this rank's own single-rank outputs of the same inputs,
+    then a 2-row synthesize_batch cut to CARD_TP_STEPS decode and
+    CARD_TP_DIFFUSION denoising steps. Returns each part's tokens, audio
+    and launch counts, and (b)'s relative differences."""
+    from tortoise_tpu_torch.models import ar
+    from tortoise_tpu_torch.models import diffusion as dm
+    from tortoise_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from tortoise_tpu_torch.parallel import ar_param_specs, make_mesh, \
+        shard_tree
+    from tortoise_tpu_torch.parallel.mesh import axis_group
+    from tortoise_tpu_torch.pipeline import ar_stage
+    from tortoise_tpu_torch.pipeline import diffusion_stage as dst
+    from tortoise_tpu_torch.pipeline.synthesize import (
+        TortoiseModels,
+        synthesize_batch,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models = TortoiseModels.random(0, diffusion={"use_flash": True})
+    bf16 = torch.bfloat16
+    kw = dict(seed=0, compute_dtype=bf16, int8_weights=True, device="cuda",
+              materialize=False)
+
+    def batch(m, rows, voices, mesh):
+        reset_launch_counts()
+        res = synthesize_batch(m, tokens_list=rows, voices=voices, mesh=mesh,
+                               **kw)
+        torch.cuda.synchronize()
+        return dict(sequences=[r.sequences for r in res],
+                    audio=[np.asarray(r.audio) for r in res],
+                    launches=launch_counts())
+
+    out = {"a": batch(models, rows, voices,
+                      make_mesh(2, shape=(2, 1), backend="gloo"))}
+    mesh = make_mesh(2, shape=(1, 2), backend="gloo")
+    tp = axis_group(mesh, "tp")
+    cfg = dataclasses.replace(ar_stage.size_cache(models.ar_cfg, 32),
+                              fused_decode=False)
+    full = ar_stage.cast_matmul_weights(models.ar_params, bf16, True, "cuda")
+    local = shard_tree(dict(full, head_pack=None), ar_param_specs(mesh),
+                       mesh)
+    ids = torch.zeros((2, 32), dtype=torch.long, device="cuda")
+    valid = torch.zeros((2, 32), dtype=torch.bool, device="cuda")
+    for i, row in enumerate(rows[:2]):
+        ids[i, :len(row)] = torch.as_tensor(row)
+        valid[i, :len(row)] = True
+    voice = torch.as_tensor(voices[:2], device="cuda")
+    tok = torch.full((2,), 7, device="cuda")
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        if not bool(torch.isfinite(got).all()):
+            return float("inf")
+        return float((got - want).abs().max() / want.abs().max())
+
+    l1, c1 = ar.prefill(full, cfg, ids, valid, voice, bf16)
+    l2, c2 = ar.prefill(local, cfg, ids, valid, voice, bf16, tp=tp)
+    d1, _ = ar.decode_step(full, cfg, c1, tok, 0, bf16)
+    d2, _ = ar.decode_step(local, cfg, c2, tok, 0, bf16, tp=tp)
+    dcfg = models.diffusion_cfg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2, dcfg.n_mel, 256), generator=g, device="cuda")
+    code = 0.5 * torch.randn((2, dcfg.d_model, 256), generator=g,
+                             device="cuda")
+    e1 = dm.denoise(dst._prepare_params(models.diffusion_params, True,
+                                        "cuda"), dcfg, x, code, 100, None,
+                    None, bf16)
+    e2 = dm.denoise(dst._prepare_params(models.diffusion_params, True,
+                                        "cuda", mesh), dcfg, x, code, 100,
+                    None, None, bf16, tp)
+    out["b_rel"] = dict(prefill=rel(l2, l1), decode_step=rel(d2, d1),
+                        denoise=rel(e2, e1))
+    cut = dataclasses.replace(
+        models, ar_cfg=dataclasses.replace(
+            models.ar_cfg, max_decode_steps=CARD_TP_STEPS),
+        diffusion_cfg=dataclasses.replace(
+            dcfg, n_sample_timesteps=CARD_TP_DIFFUSION))
+    out["b"] = batch(cut, rows[:2], voices[:2], mesh)
+    out["b"]["lengths"] = [card_audio_length(cut, s[0])
+                           for s in out["b"]["sequences"]]
+    return out
+
+
+def card_audio_length(models, sequence):
+    """The audio samples the one-shot path gives for ``sequence``."""
+    from tortoise_tpu_torch.pipeline.ar_stage import trim_keep_lengths
+    from tortoise_tpu_torch.pipeline.diffusion_stage import (
+        mel_length_for_latents,
+    )
+    from tortoise_tpu_torch.pipeline.vocoder_stage import audio_length
+
+    keep = trim_keep_lengths([sequence], models.ar_cfg)[0]
+    return audio_length(mel_length_for_latents(keep), models.vocoder_cfg)

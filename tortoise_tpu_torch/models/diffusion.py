@@ -38,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from tortoise_tpu_torch.config import DiffusionConfig
-from tortoise_tpu_torch.ops.basic import pdot, pdot_int8act, silu
+from tortoise_tpu_torch.ops.basic import pdot, silu
 from tortoise_tpu_torch.ops.conv import conv1d_nwc
 from tortoise_tpu_torch.ops.cuda import int8_product as i8
 from tortoise_tpu_torch.ops.cuda.flash_attention import (
@@ -55,12 +55,7 @@ NEG_INF = -1e30
 def _linear(x, w, b, compute_dtype=None, out_dtype=None):
     if isinstance(w, tuple):
         # pre-transposed int8 pair: dynamic per-row activation quantization
-        if i8.takes_kernels(x):  # kernels Q8 and E8, the cast and bias too
-            return i8.int8_product(x, w, b, out_dtype)
-        out = pdot_int8act(x, w)
-        if out_dtype is not None:
-            return out.to(out_dtype) + b.to(out_dtype)
-        return out + b
+        return i8.int8_product(x, w, b, out_dtype)
     if out_dtype is not None and compute_dtype is not None:
         return pdot(x, w.T, compute_dtype, out_dtype) + b.to(out_dtype)
     return pdot(x, w.T, compute_dtype) + b
@@ -73,9 +68,9 @@ def _row_linear(x, w, b, compute_dtype, out_dtype, tp):
     if tp is None:
         return _linear(x, w, b, compute_dtype, out_dtype)
     if isinstance(w, tuple):
-        out = pdot_int8act(x, w, _row_max(tp), tp.all_reduce)
-    else:
-        out = tp.all_reduce(pdot(x, w.T, compute_dtype, torch.float32))
+        return i8.int8_product(x, w, b, out_dtype, row_max=_row_max(tp),
+                               reduce=tp.all_reduce)
+    out = tp.all_reduce(pdot(x, w.T, compute_dtype, torch.float32))
     if out_dtype is not None:
         return out.to(out_dtype) + b.to(out_dtype)
     return out + b

@@ -81,18 +81,11 @@ def pdot_int8act(x: torch.Tensor, w, row_max=None,
     ``quantize_rows``). ``reduce`` maps the exact integer sums before
     the scales apply: under tensor parallelism the all-reduce of the
     ranks' partial sums, which keeps the product the single rank's bit
-    for bit. Returns float32. On a card without those hooks the product
-    runs kernels Q8 and E8 (``ops.cuda.int8_product``), the same bits."""
-    from tortoise_tpu_torch.ops.cuda import int8_product as i8
+    for bit. Returns float32: ``ops.cuda.int8_product``, kernels Q8 and
+    E8 on a card without the hooks."""
+    from tortoise_tpu_torch.ops.cuda.int8_product import int8_product
 
-    if i8.takes_kernels(x, row_max, reduce):
-        return i8.int8_product(x, w)
-    wq, scale = w
-    xq, s_row = quantize_rows(x, row_max)
-    acc = mm_bf16(xq, wq)
-    if reduce is not None:
-        acc = reduce(acc)
-    return acc * s_row * scale
+    return int8_product(x, w, row_max=row_max, reduce=reduce)
 
 
 def quantize_cols(w: torch.Tensor):

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tortoise_tpu_torch.ops.basic import _mm, mm_bf16, quantize_rows
+from tortoise_tpu_torch.ops.basic import _mm
 from tortoise_tpu_torch.ops.cuda import int8_product as i8
 
 
@@ -36,44 +36,16 @@ def conv1d_nwc(x, w, b=None, stride: int = 1, padding: int = 0,
                out_dtype=None, row_max=None, reduce=None):
     """Time-major conv: x (N, T, C_in) -> (N, T', C_out). ``w`` may be an
     int8 pair (wmat (K*C_in, C_out) int8, scale) — then the product runs
-    with per-row activation quantization, one shifted matmul per tap
-    (k = 2*padding + 1); ``row_max`` and ``reduce`` (given the stacked
-    taps' integer sums) as in ``ops.basic.pdot_int8act``; on a card
-    without them kernels Q8 and E8 run it, the cast and the bias
-    (``ops.cuda.int8_product``), the same bits."""
+    with per-row activation quantization, one matmul per tap (k =
+    2*padding + 1), the cast and the bias in
+    ``ops.cuda.int8_product.int8_product``; ``row_max`` and ``reduce``
+    (given the stacked taps' integer sums) as there."""
     if compute_dtype is None:
         out_dtype = None
     if isinstance(w, tuple):
-        wq, scale = w
-        k = 2 * padding + 1
         if stride != 1 or dilation != 1 or groups != 1:
             raise ValueError("int8 conv supports stride=dilation=groups=1")
-        if i8.takes_kernels(x, row_max, reduce):
-            return i8.int8_product(x, w, b, out_dtype, padding)
-        if k == 1:
-            xq, s_row = quantize_rows(x, row_max)
-            acc = mm_bf16(xq, wq)
-            out = (acc if reduce is None else reduce(acc)) * s_row * scale
-        else:
-            t = x.shape[1]
-            xq, s_row = quantize_rows(x, row_max)
-            xqp = F.pad(xq, (0, 0, padding, padding))
-            srp = F.pad(s_row, (0, 0, padding, padding))
-            cin = wq.shape[0] // k
-            wq3 = wq.reshape(k, cin, wq.shape[-1])
-            taps = [mm_bf16(xqp[:, j:j + t], wq3[j]) for j in range(k)]
-            if reduce is not None:
-                taps = reduce(torch.stack(taps)).unbind(0)
-            out = None
-            for j in range(k):
-                part = taps[j] * srp[:, j:j + t]
-                out = part if out is None else out + part
-            out = out * scale
-        if out_dtype is not None:
-            out = out.to(out_dtype)
-        if b is not None:
-            out = out + (b.to(out_dtype) if out_dtype else b)
-        return out
+        return i8.int8_product(x, w, b, out_dtype, padding, row_max, reduce)
     k = w.shape[-1]
     if (k <= 3 and stride == 1 and dilation == 1 and groups == 1
             and padding == (k - 1) // 2 and k % 2 == 1):

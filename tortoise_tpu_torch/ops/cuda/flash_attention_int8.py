@@ -220,7 +220,8 @@ def attend_i8(qkv: torch.Tensor, n_head: int, kv, mask: torch.Tensor,
               bias: torch.Tensor) -> torch.Tensor:
     """Kernel F's attention kernel alone, on the quantize pass's ``kv`` =
     (ki, vit, scales) and ``launch_i8``'s checked, aligned qkv and side
-    inputs (``chip_smoke.py`` times it apart from the quantize pass).
+    inputs (``scripts/torch_kernel_times.py`` times it apart from the
+    quantize pass).
     Counted in ``flash_packed_i8.launches``."""
     b, t, c3 = qkv.shape
     d = c3 // (3 * n_head)
