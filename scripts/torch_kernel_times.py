@@ -24,7 +24,10 @@ PERF.md's kernel table names them: A at B = 1 and 16; B, B128, C, C128
 64); each D2 mode; Bf, Cf, Df2, Df1 and the f32 D2 modes (split-TF32
 body; ``fma_bound_ms`` beside its bound); E per hop; F (its quantize
 pass and attention kernel alone, B on the same qkv, the design's floor);
-G; Q8 and E8 with the whole int8 product at the denoiser's shapes.
+G; Q8 and E8 with the whole int8 product at the denoiser's shapes; CP
+at F5's padded lengths (beside ``plain_ms``, the eager chain on cuDNN,
+``library_ms``: cuDNN's two grouped convs alone, on channel-major
+copies made outside the timing).
 
 --profile adds torch.profiler over kernel A's decode step and a 3-step
 full-width denoising run (device time by kernel, idle share; with
@@ -77,6 +80,12 @@ G_CHAINS = (("res_out_norm", "rows", True), ("attn_norm", None, False))
 # res_out_conv
 I8_CASES = (("qkv", 1024, 3072, 0), ("proj", 1024, 1024, 0),
             ("integrating", 2048, 1024, 0), ("res_out_conv", 1024, 1024, 1))
+# CP: F5's CFG map (b, t, channels, groups) at three of the loop's padded
+# lengths in bf16 (the wgmma body), and on the f32 plane at one (the SIMT
+# body), the last CP_PADDED frames of each masked
+CP_CASES = ((2, 768, 1024, 16), (2, 1280, 1024, 16), (2, 2048, 1024, 16))
+CP_F32_CASES = ((2, 1280, 1024, 16),)
+CP_PADDED = 67
 
 # published peaks of one H100 SXM (NVIDIA's data sheet; dense rates) and
 # the MUFU's exp rate: 132 SMs x 16 exp2 a clock x 1.98 GHz boost clock
@@ -726,6 +735,43 @@ def time_int8_product(torch, T, g):
             del x, x3, pair, bias, codes, s_row, sums, out
 
 
+def time_cp(torch, T, g):
+    """CP at CP_CASES (bf16) and CP_F32_CASES ("CP f32") beside its plain
+    twin and cuDNN's two convs (TF32 off); the bound counts both convs'
+    FLOPs (at the bf16 tensor cores' peak, or the f32 FMAs' for the f32
+    plane's SIMT body) and h, the output, the tap tiles, the biases and
+    the mask once."""
+    import torch.nn.functional as F
+    from tortoise_tpu_torch.ops.cuda import conv_pos as K
+
+    cases = [("CP", torch.bfloat16, x) for x in CP_CASES] + \
+        [("CP f32", torch.float32, x) for x in CP_F32_CASES]
+    for name, dt, (b, t, c, groups) in cases:
+        h = (torch.randn((b, t, c), generator=g, device="cuda") * 1.5).to(dt)
+        ws = [torch.randn(shape, generator=g, device="cuda").mul(0.02).to(dt)
+              for shape in ((c, c // groups, K.TAPS), (c,)) * 2]
+        fm = (torch.arange(t, device="cuda") < t - CP_PADDED)[None, :, None]
+        tiles = tuple(K.weight_tiles(w, groups) for w in ws[::2])
+        args = (h, *ws, groups, fm, dt if dt == torch.bfloat16 else None)
+        out = K.conv_pos_embed(*args, tiles)
+        hc = h.transpose(1, 2).contiguous()
+
+        def convs():
+            y = F.conv1d(hc, ws[0], ws[1], padding=K.TAPS // 2, groups=groups)
+            return F.conv1d(y, ws[2], ws[3], padding=K.TAPS // 2,
+                            groups=groups)
+
+        T.kernel(name, [b, t, c, groups],
+                 lambda: K.conv_pos_embed(*args, tiles),
+                 plain=lambda: K.conv_pos_embed_plain(*args),
+                 library_ms=cuda_ms(torch, convs),
+                 **bound(nbytes(h, out, tiles, ws[1::2], fm),
+                         flops=2 * 2.0 * b * t * c * (c // groups) * K.TAPS,
+                         flop_rate=BF16_FLOPS if dt == torch.bfloat16
+                         else F32_FLOPS))
+        del h, ws, fm, tiles, args, out, hc
+
+
 def trace_kernel_a(torch, T) -> None:
     """Kernel A's own timeline (its tt_decode_set_trace hook, the global
     timer at every grid barrier) at B = 1 and 16: per layer phase, the
@@ -967,6 +1013,7 @@ def main() -> int:
     time_f(torch, T, g)
     time_g(torch, T, g)
     time_int8_product(torch, T, g)
+    time_cp(torch, T, g)
     if args.profile:
         profile_phase(torch, T)
     return 0

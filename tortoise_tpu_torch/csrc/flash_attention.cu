@@ -112,32 +112,12 @@ struct Geo {
 };
 
 // wgmma shared-memory descriptor of a box of 64 rows of kBW bf16 in the
-// swizzle of its row width (128, 64 or 32 bytes): 8-row groups 8 rows
-// apart. The K-major operands (Q, K) and the MN-major V (whose N, the
-// box's width, fits in one swizzle row) share it.
+// swizzle of its row width (128, 64 or 32 bytes). The K-major operands
+// (Q, K) and the MN-major V (whose N, the box's width, fits in one
+// swizzle row) share it.
 template <int D>
 __device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  constexpr uint64_t row = Geo<D>::kBW * 2;
-  constexpr uint64_t layout = row == 128 ? 1 : row == 64 ? 2 : 3;  // B128/B64/B32
-  const uint64_t a = tt::smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (((8 * row) >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving register accesses across the async ops
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  return tt::wgmma_desc<Geo<D>::kBW * 2>(p);
 }
 
 #define TT_ACC8(d)                                                          \
@@ -221,7 +201,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], const uint8_t* qt,
     const int off = ((kk / kSteps) * Geo<D>::kBoxBytes + (kk % kSteps) * 32) >> 4;
     wgmma_ss(s, dq + off, dk + off, kk);
   }
-  wgmma_commit();
+  tt::wgmma_commit();
 }
 
 // O += P V over one 64-key tile, issued and committed (not waited for;
@@ -237,14 +217,14 @@ __device__ __forceinline__ void issue_pv(
     for (int nb = 0; nb < Geo<D>::kNB; ++nb)
       wgmma_rs(o[nb], pa[kk],
                dv + ((nb * Geo<D>::kBoxBytes + kk * 16 * Geo<D>::kBW * 2) >> 4));
-  wgmma_commit();
+  tt::wgmma_commit();
 }
 
 template <int D>
 __device__ __forceinline__ void fence_out(
     float (&o)[Geo<D>::kNB][Geo<D>::kBW / 2]) {
 #pragma unroll
-  for (int nb = 0; nb < Geo<D>::kNB; ++nb) fence_regs(o[nb]);
+  for (int nb = 0; nb < Geo<D>::kNB; ++nb) tt::fence_regs(o[nb]);
 }
 
 // This thread's materialized-bias pairs of one 64-key tile: bf[c][hf] is
@@ -522,18 +502,18 @@ attn_kernel(const __grid_constant__ CUtensorMap qmap,
       load_bias(bf, brow + j0, a.bias_ld, row0, row1, j0 + 2 * tg, Tkv);
     tt::mbar_wait(&full[st], (t / kStages) & 1);
     if (!kCausal || j0 <= wg_last) {
-      wgmma_fence();
+      tt::wgmma_fence();
       issue_qk<D>(s, qtile, ks + st * G::kTileBytes);
-      wgmma_wait<0>();
-      fence_regs(s);
+      tt::wgmma_wait<0>();
+      tt::fence_regs(s);
       softmax_tile<kCausal, kBias>(s, bp, bf, mp, j0, r0, tg, sl2, m, l,
                                    corr);
       rescale<D>(o, corr);
       pack_p(s, pa);
       fence_out<D>(o);
-      wgmma_fence();
+      tt::wgmma_fence();
       issue_pv<D>(o, pa, vs + st * G::kTileBytes);
-      wgmma_wait<0>();
+      tt::wgmma_wait<0>();
       fence_out<D>(o);
     }
     __syncwarp();
@@ -803,13 +783,13 @@ qkv_kernel(const __grid_constant__ CUtensorMap qkv_map, int T, int H,
     if (!kCausal || j0 <= wg_last) {
       float s[32];
       const uint64_t dk = smem_desc<kD>(ks + st * kTile);
-      wgmma_fence();
+      tt::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // over the head width, 16 at a time
         wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(s);
+      tt::wgmma_commit();
+      tt::wgmma_wait<0>();
+      tt::fence_regs(s);
 
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -848,14 +828,14 @@ qkv_kernel(const __grid_constant__ CUtensorMap qkv_map, int T, int H,
         pa[i >> 3][half + 2 * ((i >> 2) & 1)] = pack_bf16(p0, p1);
       }
       const uint64_t dv = smem_desc<kD>(vs + st * kTile);
-      fence_regs(o);
-      wgmma_fence();
+      tt::fence_regs(o);
+      tt::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // over the tile's keys, 16 at a time
         wgmma_rs(o, pa[kk], dv + ((kk * 16 * 128) >> 4));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
+      tt::wgmma_commit();
+      tt::wgmma_wait<0>();
+      tt::fence_regs(o);
     }
     __syncwarp();
     if (lane == 0) tt::mbar_arrive(&empty[st]);

@@ -335,32 +335,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   }
 }
 
-// wgmma shared-memory descriptor of a K-major 8-bit tile whose rows are
-// kRow bytes (32, 64 or 128) in the TMA swizzle of that width: 8-row
-// groups 8 rows apart (as kernel B's bf16 boxes of the same row bytes)
-template <int kRow>
-__device__ __forceinline__ uint64_t desc8(const void* p) {
-  constexpr uint64_t layout = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
-  const uint64_t a = tt::smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((8 * kRow) >> 4) << 32) |
-         (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 #define TT_I8(d, o)                                                          \
   "+r"(d[o + 0]), "+r"(d[o + 1]), "+r"(d[o + 2]), "+r"(d[o + 3]),            \
       "+r"(d[o + 4]), "+r"(d[o + 5]), "+r"(d[o + 6]), "+r"(d[o + 7])
@@ -412,13 +386,13 @@ template <int D>
 __device__ __forceinline__ void score_tile(int (&s)[32],
                                            const uint32_t (&qa)[D / 32][4],
                                            const uint8_t* kt) {
-  const uint64_t dk = desc8<D>(kt);
-  wgmma_fence();
+  const uint64_t dk = tt::wgmma_desc<D>(kt);
+  tt::wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < D / 32; ++ks) wgmma_i8(s, qa[ks], dk + 2 * ks, ks);
-  wgmma_commit();
-  wgmma_wait0();
-  fence_regs(s);
+  tt::wgmma_commit();
+  tt::wgmma_wait<0>();
+  tt::fence_regs(s);
 }
 
 // the block's queries of rows i0 .. i0 + 127 of one (b, h), quantized on
@@ -529,13 +503,13 @@ template <int D>
 __device__ __forceinline__ void score_half(int (&s)[16],
                                            const uint32_t (&qa)[D / 32][4],
                                            const uint8_t* kt, int h) {
-  const uint64_t dk = desc8<D>(kt) + ((32 * D * h) >> 4);
-  wgmma_fence();
+  const uint64_t dk = tt::wgmma_desc<D>(kt) + ((32 * D * h) >> 4);
+  tt::wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < D / 32; ++ks) wgmma_i8(s, qa[ks], dk + 2 * ks, ks);
-  wgmma_commit();
-  wgmma_wait0();
-  fence_regs(s);
+  tt::wgmma_commit();
+  tt::wgmma_wait<0>();
+  tt::fence_regs(s);
 }
 
 template <int D, typename T>
@@ -668,7 +642,7 @@ __global__ void __launch_bounds__(kThreads, Geo<D>::kMinBlocks)
     wait_or_trap(&full[st], (u / kStages) & 1);
     float b0;
     const bool uni = uniform_tile(bw, mk, lo, lane, b0);
-    const uint64_t dv = desc8<64>(stage + G::kOffV);
+    const uint64_t dv = tt::wgmma_desc<64>(stage + G::kOffV);
     // the tile in two 32-key halves: S, its weights, its P V step
 #pragma unroll
     for (int hs = 0; hs < 2; ++hs) {
@@ -681,12 +655,12 @@ __global__ void __launch_bounds__(kThreads, Geo<D>::kMinBlocks)
       else
         step_weights<false>(sh, bw, mk, xa, t4, 32 * hs, sc, b0, ma, mb, la,
                             lb, pa);
-      fence_regs(acc);
-      wgmma_fence();
+      tt::fence_regs(acc);
+      tt::wgmma_fence();
       wgmma_i8(acc, pa, dv + 2 * hs, 1);
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(acc);
+      tt::wgmma_commit();
+      tt::wgmma_wait<0>();
+      tt::fence_regs(acc);
     }
     release(u);
   }

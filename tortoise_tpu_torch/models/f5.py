@@ -7,8 +7,9 @@ arXiv:2410.06885), a model family of its own beside Tortoise's.
   position table, then ConvNeXt-V2 blocks (depthwise conv k 7, LN,
   Linear, exact GELU, GRN, Linear, residual), run once a request for
   both CFG rows (the unconditioned row embeds the filler everywhere);
-- input: Linear of [noisy mel | cond mel | text], plus two grouped convs
-  (k 31, 16 groups) with Mish;
+- input: Linear of [noisy mel | cond mel | text], plus the conv position
+  embedding: two grouped convs (k 31, 16 groups) with Mish, a residual
+  (kernel CP, ``ops.cuda.conv_pos``);
 - ``depth`` DiT blocks: AdaLN-Zero on the time embedding (shift, scale,
   gate of each branch), attention with rotary q and k on every head
   through kernel B (``ops.cuda.flash_attention``), tanh-GELU FFN;
@@ -38,7 +39,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tortoise_tpu_torch.ops.basic import pdot
+from tortoise_tpu_torch.ops.basic import conv1d_tm, pdot, zero_frames
+from tortoise_tpu_torch.ops.cuda import conv_pos
 from tortoise_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_packed,
     launch_packed,
@@ -122,19 +124,6 @@ def _lin(x, w, b, cd=None, out_dtype=None):
     return pdot(x, w.T, cd, od) + b.to(od)
 
 
-def _conv(x, w, b, cd=None, groups=1):
-    """Conv1d over a time-major (B, T, C) map, "same" zero padding, in
-    ``cd`` (f32 without it); returns (B, T, C_out)."""
-    dt = cd or torch.float32
-    y = F.conv1d(x.to(dt).transpose(1, 2), w.to(dt), b.to(dt),
-                 padding=w.shape[-1] // 2, groups=groups)
-    return y.transpose(1, 2)
-
-
-def _zero(x, mask):
-    return x if mask is None else torch.where(mask, x, 0.0)
-
-
 def _layer_norm(x, eps, w=None, b=None):
     return F.layer_norm(x, x.shape[-1:], w, b, eps)
 
@@ -143,7 +132,8 @@ def prepare(params, cfg: F5Config, compute_dtype=None) -> dict:
     """The device tree the loop reads: every weight in ``compute_dtype``
     (f32 without it); q, k, v fused per head as kernel B takes them;
     every block's AdaLN linear and the output's stacked into one product
-    a step (their inputs are the same SiLU(t))."""
+    a step (their inputs are the same SiLU(t)); where kernel CP takes
+    the conv position embedding's weights, their tap tiles."""
     dt = compute_dtype or torch.float32
     cast = functools.partial(_cast_tree, dtype=dt)
     b = params["blocks"]
@@ -159,10 +149,15 @@ def prepare(params, cfg: F5Config, compute_dtype=None) -> dict:
               if k[0] not in "qkv" and not k.startswith("ada")}
     blocks["qkv_w"] = qkv_w.reshape(n, 3 * d, d)
     blocks["qkv_b"] = qkv_b.reshape(n, 3 * d)
+    inp = cast(params["input"])
+    if conv_pos.takes_weights(inp["pos1_w"], cfg.conv_pos_groups):
+        inp["pos_tiles"] = tuple(
+            conv_pos.weight_tiles(inp[k], cfg.conv_pos_groups)
+            for k in ("pos1_w", "pos2_w"))
     return {
         "time": cast(params["time"]),
         "text": {k: v.float() for k, v in params["text"].items()},
-        "input": cast(params["input"]),
+        "input": inp,
         "blocks": cast(blocks),
         "ada_w": cast(torch.cat([b["ada_w"].reshape(n * 6 * d, d),
                                  out["ada_w"]])),
@@ -211,22 +206,23 @@ def text_embed(prep, cfg: F5Config, idx, text_len: int, frame_mask=None,
     rows = torch.stack([idx, torch.zeros_like(idx)])
     x = p["emb"][rows] + text_table(cfg.text_dim, cfg.text_max_pos,
                                     idx.device)[:t]
-    x = _zero(x, keep)
+    x = zero_frames(x, keep)
     cd = compute_dtype
     for l in range(cfg.conv_layers):
-        y = _conv(x, p["dw_w"][l][:, None], p["dw_b"][l], cd,
-                  groups=cfg.text_dim).float()
+        y = conv1d_tm(x, p["dw_w"][l][:, None], p["dw_b"][l], cd,
+                      groups=cfg.text_dim).float()
         y = _layer_norm(y, cfg.ln_eps, p["ln_w"][l], p["ln_b"][l])
         y = F.gelu(_lin(y, p["pw1_w"][l], p["pw1_b"][l], cd, torch.float32))
         y = grn(y, p["grn_g"][l], p["grn_b"][l], frame_mask)
-        x = _zero(x + _lin(y, p["pw2_w"][l], p["pw2_b"][l], cd,
-                           torch.float32), keep)
+        x = zero_frames(x + _lin(y, p["pw2_w"][l], p["pw2_b"][l], cd,
+                                 torch.float32), keep)
     return x
 
 
 def grn(x, g, b, frame_mask=None):
     """GRN over (B, T, C): the L2 norm over the frames of ``frame_mask``."""
-    gx = torch.linalg.vector_norm(_zero(x, frame_mask), dim=1, keepdim=True)
+    gx = torch.linalg.vector_norm(zero_frames(x, frame_mask), dim=1,
+                                  keepdim=True)
     nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
     return g * (x * nx) + b + x
 
@@ -318,10 +314,9 @@ def velocity(prep, cfg: F5Config, x, cond_text, t, frame_mask=None,
     pi = prep["input"]
     h = torch.cat([x.to(dt).expand(b, tl, -1), cond_text.to(dt)], dim=-1)
     h = _lin(h, pi["w"], pi["b"], cd)
-    g = cfg.conv_pos_groups
-    y = F.mish(_conv(_zero(h, frame_mask), pi["pos1_w"], pi["pos1_b"], cd, g))
-    y = F.mish(_conv(_zero(y, frame_mask), pi["pos2_w"], pi["pos2_b"], cd, g))
-    h = h + _zero(y, frame_mask)
+    h = conv_pos.conv_pos_embed(h, pi["pos1_w"], pi["pos1_b"], pi["pos2_w"],
+                                pi["pos2_b"], cfg.conv_pos_groups, frame_mask,
+                                cd, pi.get("pos_tiles"))
     cis = rope_table(tl, cfg.d_head, h.device)
     for l in range(cfg.depth):
         p = {k: v[l] for k, v in prep["blocks"].items()}

@@ -206,3 +206,19 @@ def silu(x):
 
 def leaky_relu(x, negative_slope: float = 0.2):
     return F.leaky_relu(x, negative_slope)
+
+
+def conv1d_tm(x, w, b, compute_dtype=None, groups: int = 1):
+    """Conv1d over a time-major (B, T, C) map, "same" zero padding, in
+    ``compute_dtype`` (f32 without it): torch's layout (C_out, C_in /
+    groups, k) for ``w``; returns (B, T, C_out)."""
+    dt = compute_dtype or torch.float32
+    y = F.conv1d(x.to(dt).transpose(1, 2), w.to(dt), b.to(dt),
+                 padding=w.shape[-1] // 2, groups=groups)
+    return y.transpose(1, 2)
+
+
+def zero_frames(x, mask):
+    """x with the frames outside a (B or 1, T, 1) bool ``mask`` set to 0
+    (x itself without a mask)."""
+    return x if mask is None else torch.where(mask, x, 0.0)

@@ -7,6 +7,7 @@ def _wrappers():
     from tortoise_tpu_torch.ops.cuda import flash_attention as fa
     from tortoise_tpu_torch.ops.cuda import flash_attention_int8 as fi
     from tortoise_tpu_torch.ops.cuda import int8_product as ip
+    from tortoise_tpu_torch.ops.cuda.conv_pos import conv_pos_embed
     from tortoise_tpu_torch.ops.cuda.decode_trunk import fused_decode_trunk
     from tortoise_tpu_torch.ops.cuda.group_norm import group_norm_act
     from tortoise_tpu_torch.ops.cuda.lvc import lvc_gated_residual
@@ -22,7 +23,8 @@ def _wrappers():
             "flash_packed_i8": fi.flash_packed_i8,
             "int8_quantize_kv": fi.quantize_kv,
             "int8_quantize_rows": ip.quantize_rows,
-            "int8_epilogue": ip.epilogue}
+            "int8_epilogue": ip.epilogue,
+            "conv_pos": conv_pos_embed}
 
 
 def launch_counts() -> dict:

@@ -43,6 +43,7 @@ SIGNATURES = {
                          + (_I,) * 6 + (_F, _I, _P),
     "tt_int8_quantize_rows": (_P, _I, _P, _P) + (_I,) * 4 + (_P,),
     "tt_int8_epilogue": (_P,) * 6 + (_I, _P) + (_I,) * 5 + (_P,),
+    "tt_conv_pos": (_P, _P, _I) + (_P,) * 5 + (_I,) * 5 + (_P,),
     "tt_decode_trunk": ((_I,) * 7 + (_F,) + (_P,) * 22 + (_I,) + (_P,) * 10
                         + (_F, _I, _F, _F) + (_P,) * 4),
     "tt_decode_partial_floats": (_I,) * 4,
