@@ -21,7 +21,9 @@ without a sync), and where they apply ``plain_ms`` (the plain twin),
 ``sdpa_ms`` and ``bound_ms`` / ``bound_by`` (``bound``). Rows, as
 PERF.md's kernel table names them: A at B = 1 and 16; B, B128, C, C128
 (heads of 64 and of 128); D1 (with B on the same qkv at 16 heads of
-64); each D2 mode; Bf, Cf, Df2, Df1 and the f32 D2 modes (split-TF32
+64); each D2 mode; D2 at width 128 at Dia's shapes (its encoder, a
+prefill's cross-attention, a decode step's self and cross rows); Bf,
+Cf, Df2, Df1 and the f32 D2 modes (split-TF32
 body; ``fma_bound_ms`` beside its bound); E per hop; F (its quantize
 pass and attention kernel alone, B on the same qkv, the design's floor);
 G; Q8 and E8 with the whole int8 product at the denoiser's shapes; CP
@@ -61,6 +63,15 @@ D2_CASES = (("causal", 8, 16, 535, 535), ("buckets", 2, 16, 1000, 1000),
             ("materialized", 2, 16, 1000, 1000),
             ("unequal", 2, 16, 256, 1000),
             ("causal_formula", 2, 16, 1000, 1000))
+# D2 at head width 128, scale 1, a key mask: (name, b, heads, Tq, Tkv,
+# valid keys) at Dia's shapes: its encoder over a 384-byte text bucket,
+# a 662-position prefill's cross-attention, and a decode step over the
+# 2048-position cache (each K/V head's 4 query heads as 4 query rows)
+# and over the text
+D2_128_CASES = (("encoder", 2, 16, 384, 384, 316),
+                ("prefill cross", 2, 16, 662, 384, 316),
+                ("decode self", 2, 4, 4, 2048, 1500),
+                ("decode cross", 2, 16, 1, 384, 316))
 # f32 inputs on the split-TF32 body: (route, b, heads, T, D) on views of
 # a packed qkv, and (b, heads, Tq, Tkv) past a whole-Tkv window
 FMA_CASES = (("D2", 8, 16, 535, 64), ("D1", 2, 32, 2176, 32))
@@ -553,6 +564,24 @@ def time_attention(torch, T, g):
                  **bound(nbytes(q, k, v, kw["kv_valid"], vec, full, out),
                          flops=4.0 * 64 * pairs, exps=pairs))
         del q, k, v, kw, add, vec, full, out
+    for name, b, h, tq, tkv, n in D2_128_CASES:
+        dev = torch.device("cuda")
+        q = torch.randn((b, h, tq, 128), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((b, h, tkv, 128), generator=g,
+                            device=dev).bfloat16() for _ in range(2))
+        valid = (torch.arange(tkv, device=dev) < n).expand(b, tkv)
+        out = K.flash_attention(q, k, v, kv_valid=valid, scale=1.0)
+        T.kernel(f"D2 128 {name}", [b, h, tq, tkv, 128],
+                 lambda: K.flash_attention(q, k, v, kv_valid=valid,
+                                           scale=1.0),
+                 plain=lambda: K.flash_attention_plain(q, k, v,
+                                                       kv_valid=valid,
+                                                       scale=1.0),
+                 sdpa=(q, k, v, K._additive_mask(valid)[:, None, None, :]),
+                 **bound(nbytes(q, k, v, valid, out),
+                         flops=4.0 * 128 * b * h * tq * n,
+                         exps=float(b * h * tq * n)))
+        del q, k, v, valid, out
 
 
 def time_f32_body(torch, T, g):

@@ -24,6 +24,12 @@ stand-in ids without them), the reference clip a seeded 3 s log-mel
 (0.1 s with ``--tiny``) with a seeded transcript (F5-TTS has no voice
 file or tokenizer here); ``--bf16`` runs its DiT in bf16.
 
+``--family dia --random-weights`` runs Dia-1.6B and the DAC 44.1 kHz
+decoder (``pipeline.dia_stage``) on seeded weights: ``--message`` (bytes,
+``[S1]``/``[S2]`` as the speakers; a seeded dialogue without it) after a
+seeded 3 s prompt of codes and transcript (5 frames with ``--tiny``);
+``--bf16`` runs its encoder and decoder in bf16.
+
 With ``TORTOISE_TRACE_DIR`` set, the synthesis (not the model load) runs
 under ``torch.profiler``, and a Chrome trace of it goes to that
 directory: the program's ``tt.`` spans beside the kernels
@@ -120,10 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; fails without a card, "
                         "pass --device cpu for the CPU)")
-    p.add_argument("--family", choices=("tortoise", "f5"),
+    p.add_argument("--family", choices=("tortoise", "f5", "dia"),
                    default="tortoise",
-                   help="model family: Tortoise-TTS v2, or F5-TTS v1 Base "
-                        "(with --random-weights)")
+                   help="model family: Tortoise-TTS v2, F5-TTS v1 Base or "
+                        "Dia-1.6B (the last two with --random-weights)")
     return p
 
 
@@ -180,9 +186,9 @@ def run(argv=None):
     from tortoise_tpu_torch.utils.profiling import trace
 
     device = resolve_device(args.device)
-    if args.family == "f5":
+    if args.family != "tortoise":
         with trace():
-            return _run_f5(args, device)
+            return FAMILY_RUNS[args.family](args, device)
     if args.random_weights:
         models = TortoiseModels.random(args.seed, tiny=args.tiny)
         tok_path = os.path.join(args.models, "tokenizer.json")
@@ -266,6 +272,46 @@ def _run_f5(args, device):
           f"vocos={result.timings['vocos_s']:.2f}s; total {total:.2f}s "
           f"(RTF {total / max(dur, 1e-9):.3f})")
     return result
+
+
+def _run_dia(args, device):
+    """--family dia: one utterance of Dia on seeded weights."""
+    import numpy as np
+    import torch
+
+    from tortoise_tpu_torch.pipeline.dia_stage import DiaModels, DiaVoice
+    from tortoise_tpu_torch.pipeline.synthesize import synthesize
+
+    if not args.random_weights:
+        raise SystemExit("--family dia runs on --random-weights only (the "
+                         "published checkpoints are not loaded here)")
+    models = DiaModels.random(args.seed, tiny=args.tiny, device=device)
+    cfg, dc = models.cfg, models.dac_cfg
+    rng = np.random.default_rng(args.seed)
+    frames = 5 if args.tiny else round(3.0 * dc.sample_rate / dc.hop)
+    voice = DiaVoice(
+        codes=rng.integers(0, dc.codebook_size, (frames, cfg.channels)),
+        text=[1] + rng.integers(32, 127, 8 if args.tiny else 45).tolist())
+    message = args.message or "[S1] " + "".join(
+        chr(c) for c in rng.integers(97, 123, 60))
+    result = synthesize(models, message=message, voice=voice,
+                        seed=args.seed,
+                        compute_dtype=torch.bfloat16 if args.bf16 else None,
+                        progress=_progress(args), device=device,
+                        min_frames=8 if args.tiny else 0,
+                        max_frames=16 if args.tiny else None)
+    result.save(args.output)
+    total = result.timings["dia_s"] + result.timings["dac_s"]
+    dur = len(result.audio) / result.sample_rate
+    print(f"wrote {args.output}: {len(result.audio)} samples ({dur:.2f}s @ "
+          f"{result.sample_rate} Hz); dia={result.timings['dia_s']:.2f}s, "
+          f"dac={result.timings['dac_s']:.2f}s; total {total:.2f}s "
+          f"(RTF {total / max(dur, 1e-9):.3f})")
+    return result
+
+
+# the runs of the families beside Tortoise's, on seeded weights
+FAMILY_RUNS = {"f5": _run_f5, "dia": _run_dia}
 
 
 def _run_synthesis(args, models, kw):

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import ClassVar, List, Sequence
 
 import numpy as np
@@ -41,6 +40,7 @@ import torch
 
 from tortoise_tpu_torch.models import f5 as fmodel
 from tortoise_tpu_torch.models import vocos as vmodel
+from tortoise_tpu_torch.params import seeded_trees
 from tortoise_tpu_torch.pipeline import common, graphs, vocos_stage
 from tortoise_tpu_torch.pipeline.common import (
     cached_cast,
@@ -71,47 +71,24 @@ class F5Voice:
     text: List[int]
 
 
-def _numel(shapes) -> int:
-    if isinstance(shapes, dict):
-        return sum(_numel(v) for v in shapes.values())
-    return math.prod(shapes)
-
-
-def _carve(buf, shapes, off, std, centre):
-    out = {}
-    for name, s in shapes.items():
-        if isinstance(s, dict):
-            out[name], off = _carve(buf, s, off, std, centre)
-            continue
-        n = math.prod(s)
-        t = buf[off:off + n].view(s).mul_(std(name))
-        c = centre(name)
-        if c:
-            t.add_(c)
-        out[name], off = t, off + n
-    return out, off
-
-
 def random_params(cfg: fmodel.F5Config, vcfg: vmodel.VocosConfig,
                   weights: dict, seed: int, device) -> tuple:
     """(DiT tree, Vocos tree) of f32 tensors on ``device`` from ``seed``:
     one generator, one flat N(0, 1) draw a model, carved in the trees'
     order (``param_shapes``) and scaled by ``weights`` (``WEIGHTS``'s
     keys)."""
-    gen = torch.Generator(device=device).manual_seed(int(seed))
-    trees = []
-    for shapes, std, centre in (
-            (fmodel.param_shapes(cfg),
-             lambda n: (weights["text_emb_std"] if n == "emb"
-                        else weights["std"]),
-             lambda n: 1.0 if n.endswith(NORM_WEIGHTS) else 0.0),
-            (vmodel.param_shapes(vcfg), lambda n: weights["vocos_std"],
-             lambda n: (1.0 if n.endswith(NORM_WEIGHTS) else
-                        1.0 / vcfg.layers if n == "gamma" else 0.0))):
-        buf = torch.randn(_numel(shapes), generator=gen, device=device,
-                          dtype=torch.float32)
-        trees.append(_carve(buf, shapes, 0, std, centre)[0])
-    return trees[0], trees[1]
+    def leaf(path):
+        return path.rsplit("/", 1)[-1]
+
+    return tuple(seeded_trees((
+        (fmodel.param_shapes(cfg),
+         lambda n: (weights["text_emb_std"] if leaf(n) == "emb"
+                    else weights["std"]),
+         lambda n: 1.0 if n.endswith(NORM_WEIGHTS) else 0.0),
+        (vmodel.param_shapes(vcfg), lambda n: weights["vocos_std"],
+         lambda n: (1.0 if n.endswith(NORM_WEIGHTS) else
+                    1.0 / vcfg.layers if leaf(n) == "gamma" else 0.0))),
+        seed, device))
 
 
 @dataclasses.dataclass

@@ -19,6 +19,7 @@ stage spans' host walls.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import os
 from typing import List, Optional
 
@@ -31,6 +32,10 @@ from tortoise_tpu_torch.text.tokenizer import Tokenizer
 from tortoise_tpu_torch.pipeline import ar_stage, diffusion_stage, vocoder_stage
 from tortoise_tpu_torch.pipeline.common import download, resolve_device, sync
 from tortoise_tpu_torch.utils.profiling import span
+
+# the stage module of each model family beside Tortoise's, imported on use
+FAMILY_STAGES = {"f5": "tortoise_tpu_torch.pipeline.f5_stage",
+                 "dia": "tortoise_tpu_torch.pipeline.dia_stage"}
 
 
 @dataclasses.dataclass
@@ -164,9 +169,12 @@ class SynthesisResult:
     latents: List[Optional[np.ndarray]]
     tokens: List[int]
     timings: dict
-    # the F5 family's loop states and guided velocities at the steps a
-    # caller asked for (``f5_stage.synthesize``'s ``probe_steps``)
+    # the F5 family's loop states and guided velocities, or the Dia
+    # family's logits, at the steps a caller asked for (the stages'
+    # ``probe_steps``)
     probes: Optional[dict] = None
+    # the Dia family's generated audio codes (channels, frames)
+    codes: Optional[np.ndarray] = None
 
     def save(self, path: str) -> None:
         write_wav(path, self.audio, self.sample_rate)
@@ -265,7 +273,7 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
                progress=None, int8_weights: bool = False,
                stage_sync: bool = True, materialize: bool = True,
                sampler_params=None, device=None,
-               probe_steps=()) -> SynthesisResult:
+               probe_steps=(), **family_args) -> SynthesisResult:
     """Run the full pipeline on ``device`` (default ``cuda``, which raises
     without a card; pass ``device="cpu"`` for the CPU). Provide
     ``message`` (tokenized with the models' tokenizer) or raw wrapped
@@ -276,18 +284,24 @@ def synthesize(models: TortoiseModels, message: Optional[str] = None,
     (serving) skips the mel and latent downloads of the device-resident
     path: ``mel`` is then None and ``latents`` one None per candidate.
 
-    An ``F5Models`` bundle (``pipeline.f5_stage``, imported only then)
-    runs F5-TTS: ``tokens`` are the char ids to speak, ``voice`` an
-    ``F5Voice``; ``probe_steps`` names loop steps whose state and guided
-    velocity come back in ``probes``. The AR-only arguments are unused
-    there."""
-    if getattr(models, "family", "tortoise") == "f5":
-        from tortoise_tpu_torch.pipeline import f5_stage
-
-        return f5_stage.synthesize(
+    A bundle of another family (its ``family``) runs that family's
+    stage module (``FAMILY_STAGES``, imported only then): an
+    ``F5Models`` bundle F5-TTS (``tokens`` the char ids to speak,
+    ``voice`` an ``F5Voice``), a ``DiaModels`` bundle Dia (``tokens`` the
+    bytes to speak or ``message`` its text, ``voice`` a ``DiaVoice``;
+    ``family_args`` its ``min_frames`` and ``max_frames``). ``probe_steps``
+    names loop steps whose state comes back in ``probes``. The AR-only
+    arguments are unused there."""
+    family = getattr(models, "family", "tortoise")
+    if family != "tortoise":
+        stage = importlib.import_module(FAMILY_STAGES[family])
+        if message is not None:
+            family_args["message"] = message
+        return stage.synthesize(
             models, tokens, voice, seed=seed, compute_dtype=compute_dtype,
             progress=progress, stage_sync=stage_sync,
-            materialize=materialize, device=device, probe_steps=probe_steps)
+            materialize=materialize, device=device, probe_steps=probe_steps,
+            **family_args)
     device = resolve_device(device)
     if tokens is None:
         if models.tokenizer is None:
